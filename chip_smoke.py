@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's main path from the sources in
-this checkout, holds each against its plain PyTorch version on the card,
-drives the DIORA text parse end to end through ``Trainer.parse`` at the
-full width of the README's quick-start model (hidden 400, embeddings
-1024, vocab 10,000, random weights from a seed; parse requests of 128
-sentences of length 20), checks the parses, and times the kernel against
-its plain version and its bound.
+Builds every CUDA kernel of the port's paths from the sources in this
+checkout (one nvcc per source, started together), holds each against its
+plain PyTorch version on the card, and drives the port's two paths at
+full width with random weights from a seed:
+
+  * the DIORA text parse through ``Trainer.parse`` (README quick-start
+    model: hidden 400, embeddings 1024, vocab 10,000; requests of 128
+    sentences of length 20), kernel K1;
+  * the CLIORA train step through ``Trainer.step`` (the configuration of
+    bench.py: B=128, L=20, D=400, E=1024, V=10,000, k_neg=100, 36 regions
+    x 2048-d features, bf16 and f32, the fused span x region route
+    ``attn_impl='cuda'``), kernels K2-K4;
+
+checks the parses, the losses and their descent, the kernel route
+against the plain ``chunked`` route and a small step against the CPU,
+and times each kernel against its plain version and its bound.
 
 Prints one JSON object per phase, then the ``kernels`` summary, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -20,6 +29,7 @@ No check falls back to the CPU.
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -35,10 +45,18 @@ from cliora_tpu_torch.chart.offsets import ncells
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import to_device
-from cliora_tpu_torch.ops import inside_cky
-from cliora_tpu_torch.training.trainer import TrainConfig, Trainer
+from cliora_tpu_torch.ops import inside_cky, span_region
+from cliora_tpu_torch.training.checkpoint import flatten, params_from_numpy
+from cliora_tpu_torch.training.trainer import (
+    TrainConfig,
+    Trainer,
+    compute_losses,
+    tree_leaves,
+)
 
 B, N, D, E, V = 128, 20, 400, 1024, 10_000
+K_NEG, R, F = 100, 36, 2048        # bench.py:42
+TRAIN_STEPS = 10
 SEED = 0
 F32_ATOL = 1e-4          # inside_s and CKY value, kernel vs plain, f32
 BF16_BP_AGREE = 0.99     # bf16 backpointer agreement, kernel vs plain
@@ -49,23 +67,56 @@ BF16_ATOL = 0.1
 # The bf16 kernel and the bf16 plain chart pass round at different points
 # (l M kept in f32 vs stored in bf16); a sanity floor, not a contract.
 BF16_ROUTE_AGREE = 0.95
+# span x region kernels vs their plain versions, as a fraction of the
+# largest magnitude of the plain result (at least 1).  f32: the sums differ
+# in order only.  bf16 K2: both take exact bf16 products with f32 sums, the
+# tensor cores in their own order; bf16 K3: the f32 sum is rounded to bf16
+# once, so two orders may land one bf16 step (2^-8 relative) apart.
+SR_F32_RTOL = 1e-4
+SR_BF16_MAX_RTOL = 1e-3
+SR_BF16_ARGMAX_AGREE = 0.99
+SR_BF16_DSPAN_RTOL = 1e-2
+# the kernel route vs the chunked route, one full-width train step
+ROUTE_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+ROUTE_GRAD_COS = {"float32": 0.999, "bfloat16": 0.99}
+CPU_LOSS_RTOL = 1e-5     # a small f32 step, card vs CPU
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 without the
 # tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+SOURCES = ("inside_cky", "span_region")
 KERNELS = {
     "inside_cky": {
         "route": "cuda",
         "source": "cliora_tpu_torch/csrc/inside_cky.cu",
         "replaces": "cliora_tpu/ops/pallas_chart.py:122",
     },
+    "span_region_fwd": {
+        "route": "cuda",
+        "source": "cliora_tpu_torch/csrc/span_region.cu",
+        "replaces": "cliora_tpu/ops/span_region.py:65",
+    },
+    "span_region_dspan": {
+        "route": "cuda",
+        "source": "cliora_tpu_torch/csrc/span_region.cu",
+        "replaces": "cliora_tpu/ops/span_region.py:156",
+    },
+    "span_region_dobj": {
+        "route": "cuda",
+        "source": "cliora_tpu_torch/csrc/span_region.cu",
+        "replaces": "cliora_tpu/ops/span_region.py:177",
+    },
 }
-# the __global__ functions of each kernel's source, as the profiler names
-# them: its CUDA launches per call are counted from the profile
+# the __global__ functions of each kernel, as the profiler names them: its
+# CUDA launches per call are counted from the profile
 DEVICE_FUNCS = {
     "inside_cky": re.compile(
         r"::(prep_weights|init_leaves|project|fc0|fc1|combine)<"),
+    "span_region_fwd": re.compile(r"::k2_fwd<"),
+    "span_region_dspan": re.compile(r"::k3_dspan<"),
+    "span_region_dobj": re.compile(r"::k4_(dobj<|reduce\()"),
 }
+SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
 
 
 def emit(obj):
@@ -100,7 +151,7 @@ def leaves(tr, tokens):
 
 
 def flops_and_bytes(b, n, d):
-    """Work of one kernel call.  FLOP: 6 D^2 per chart cell below the root
+    """Work of one K1 call.  FLOP: 6 D^2 per chart cell below the root
     (its projections W0[:, :D] h, W0[:, D:] h, h M) + 2 D^2 + 2 D per
     (cell, split) row (fc1 and the dot of l M with r).  Bytes: f32 leaves
     and weights read once, the three (B, ncells) outputs written once."""
@@ -111,17 +162,45 @@ def flops_and_bytes(b, n, d):
     return flops, nbytes, rows
 
 
+def roofline(flops, nbytes, peak_flops):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return {"flop": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def bound(b, n, d, dtype):
     flops, nbytes, rows = flops_and_bytes(b, n, d)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     # the TPU kernel's formulation (fc0 and l M per row: 8 D^2 + 2 D per
     # row), for comparison with its FLOP count
     per_row = rows * (8 * d * d + 2 * d)
-    return {"flop": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    return {**roofline(flops, nbytes, PEAK_FLOPS[dtype]),
             "flop_per_row_formulation": per_row,
             "bound_ms_per_row_formulation": per_row / PEAK_FLOPS[dtype] * 1e3}
+
+
+def sr_bound(name, span, obj):
+    """Work of one K2/K3/K4 call on these inputs.  K2: 2 A M C R D FLOP in
+    the span dtype; reads span and the span-dtype obj, writes max and
+    argmax (A, C, M) f32 + int32.  K3: 2 A M C D FLOP of f32 FMA on the
+    CUDA cores; reads g, argmax and f32 obj, writes dspan in the span
+    dtype.  K4: the same FLOP; reads span, g and argmax, writes f32
+    dobj."""
+    A, M, Dd = span.shape
+    C, Rr, _ = obj.shape
+    es = span.element_size()
+    gam = 8 * A * C * M                  # g f32 + argmax int32
+    if name == "span_region_fwd":
+        dtype = "bfloat16" if span.dtype == torch.bfloat16 else "float32"
+        return roofline(2 * A * M * C * Rr * Dd,
+                        es * (A * M * Dd + C * Rr * Dd) + gam,
+                        PEAK_FLOPS[dtype])
+    flops = 2 * A * M * C * Dd
+    if name == "span_region_dspan":
+        return roofline(flops, gam + 4 * C * Rr * Dd + es * A * M * Dd,
+                        PEAK_FLOPS["float32"])
+    return roofline(flops, es * A * M * Dd + gam + 4 * C * Rr * Dd,
+                    PEAK_FLOPS["float32"])
 
 
 def cuda_ms(fn, reps=10, runs=5):
@@ -163,64 +242,51 @@ def kernel_vs_plain(dp, h0, dtype):
 
 
 def profile_kernels(fn):
-    """Device ms by CUDA kernel name over one call of ``fn``; empty when
-    the profiler sees no device activity."""
+    """Device ms and launches by CUDA kernel name over one call of ``fn``;
+    empty when the profiler sees no device activity.  A trace can miss
+    the first kernel launched after it starts, so a short spin kernel
+    (``torch.cuda._sleep``) runs first and is left out of the result."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     by_name = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in evt.name):
             rec = by_name.setdefault(evt.name[:60], {"ms": 0.0, "count": 0})
             rec["ms"] += evt.device_time_total / 1e3
             rec["count"] += 1
     return by_name
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run only on "
-              "the card", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    # the plain versions are the reference: full f32 matmuls, no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line()
-    emit({"phase": "env", "python": sys.version.split()[0],
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "allow_tf32": {"matmul": False, "cudnn": False}})
+def own_launches(by_kernel, name):
+    """CUDA launches of kernel ``name``'s device functions in a profile."""
+    own = [r["count"] for k, r in by_kernel.items()
+           if DEVICE_FUNCS[name].search(k)]
+    return sum(own) if own else "not measured"
 
-    # -- build every kernel of the path from this checkout's sources
-    built = kernels.build(list(KERNELS), force=True)
-    for name in KERNELS:
-        rec = built[name]
-        emit({"phase": "build", "kernel": name, "seconds": rec["seconds"],
-              **ptxas_summary(rec["ptxas"]), "ptxas": rec["ptxas"]})
-    # the host decoder builds at first use too: build it here, not inside
-    # the first timed request
-    t0 = time.perf_counter()
-    decoder_mod = native.load()
-    emit({"phase": "build", "decoder": "native" if decoder_mod else "python",
-          "seconds": time.perf_counter() - t0})
 
-    # -- the model: README quick-start DIORA at full width, random weights
+# -- the parse path: K1 -------------------------------------------------------
+
+def parse_path(rs):
+    """K1 against its plain version, parse requests through
+    ``Trainer.parse``, card vs CPU, timing.  Returns the K1 entry of the
+    kernels line."""
+    # the model: README quick-start DIORA at full width, random weights
     cfg32 = ModelConfig(size=D, input_size=E)
     tr32 = Trainer.build(cfg32, TrainConfig(), V, seed=SEED)
     check(tr32.device.type == "cuda", "trainer is not on the card")
     tr16 = Trainer(dataclasses.replace(cfg32, compute_dtype="bfloat16"),
                    TrainConfig(), tr32.params)
     dp = tr32.params["diora"]
-    rs = np.random.RandomState(SEED)
 
-    # -- each kernel vs its plain version, at the main path's shapes
+    # -- the kernel vs its plain version, at the main path's shapes
     checked = {}
     for (b, n) in ((B, N), (B, 3), (37, 12)):
         with torch.no_grad():
@@ -261,7 +327,7 @@ def main():
         t2 = time.perf_counter()
         done.append((dtype, tr, batch, res, decoded, trees.last_decoder,
                      before, inside_cky.launches, t1 - t0, t2 - t1))
-    main_launches = {"inside_cky": inside_cky.launches}
+    path_launches = inside_cky.launches
 
     for i, (dtype, tr, batch, res, decoded, decoder, before, after, t_parse,
             t_dec) in enumerate(done):
@@ -306,7 +372,7 @@ def main():
             check(agree >= BF16_ROUTE_AGREE,
                   f"bf16 request: bp agreement with plain route {agree}")
         emit(rec)
-    check(main_launches["inside_cky"] >= 5, "main path skipped the kernel")
+    check(path_launches >= 5, "the parse path skipped the kernel")
 
     # the card agrees with the CPU on a small input
     small = {"sentences": rs.randint(0, V, (37, 12))}
@@ -315,7 +381,7 @@ def main():
     on_card, _ = tr32.parse(small)
     on_cpu, _ = cpu.parse(small)
     differ = int(np.sum(on_card["cky_bp"] != on_cpu["cky_bp"]))
-    emit({"phase": "cpu_reference", "shape": [37, 12, D],
+    emit({"phase": "cpu_reference", "path": "parse", "shape": [37, 12, D],
           "card_route": on_card["parse_impl"],
           "cpu_route": on_cpu["parse_impl"], "cells_differ": differ})
     check(differ == 0, "card and CPU parses differ at f32")
@@ -335,14 +401,12 @@ def main():
             p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                               cuda_ms(plain))
             by_kernel = profile_kernels(kern)
-            own = [r["count"] for name, r in by_kernel.items()
-                   if DEVICE_FUNCS["inside_cky"].search(name)]
             rec = {"ms": statistics.median(k1 + k2),
                    "plain_ms": statistics.median(p1 + p2),
                    **bound(B, N, D, dtype), "library_ms": None,
                    "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
-                   "cuda_launches_per_call": (sum(own) if own
-                                              else "not measured")}
+                   "cuda_launches_per_call": own_launches(by_kernel,
+                                                          "inside_cky")}
             timing[dtype] = rec
             emit({"phase": "timing", "name": "inside_cky", "dtype": dtype,
                   "shape": [B, N, D], **rec})
@@ -368,8 +432,9 @@ def main():
 
     f32 = timing["float32"]
     main_rec = checked[(B, N, "float32")]
-    emit({"kernels": [{
-        "name": name, **meta, "launches": main_launches[name],
+    return {
+        "name": "inside_cky", **KERNELS["inside_cky"],
+        "launches": path_launches,
         "max_abs_err": main_rec["max_abs_err"], "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
@@ -378,7 +443,401 @@ def main():
         "bf16": {k: timing["bfloat16"][k]
                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         | {"bp_agree": checked[(B, N, "bfloat16")]["bp_agree"]},
-    } for name, meta in KERNELS.items()]})
+    }
+
+
+# -- the train path: K2-K4 ----------------------------------------------------
+
+def span_region_vs_plain(span, obj, g):
+    """K2, K3 and K4 on the card vs their plain versions on the same
+    inputs (K3/K4 fed the kernel's argmax), each backward kernel twice."""
+    sync = torch.cuda.synchronize
+    dt = span.dtype
+    Rr = obj.shape[1]
+    mx, am = span_region.span_region_fwd(span, obj)
+    sync()
+    pmx, pam = span_region.span_region_fwd_plain(span, obj)
+    scale = max(1.0, pmx.abs().max().item())
+    rec = {"fwd_max_abs_err": (mx - pmx).abs().max().item(),
+           "fwd_scale": scale,
+           "argmax_agree": (am == pam).float().mean().item(),
+           "finite": bool(torch.isfinite(mx).all()),
+           "shapes_ok": (mx.shape == pmx.shape and am.dtype == torch.int32)}
+    if dt == torch.float32:
+        # the argmax is held wherever the top two scores differ by more
+        # than the tolerance of the max
+        top2 = torch.topk(torch.einsum("amd,crd->acmr", span, obj),
+                          min(2, Rr), dim=-1).values
+        gap = (top2[..., 0] - top2[..., -1]) > SR_F32_RTOL * scale
+        rec["argmax_equal_off_ties"] = bool(torch.equal(am[gap], pam[gap]))
+        rec["near_ties"] = int((~gap).sum().item())
+        del top2
+    dspan = span_region.span_region_dspan(obj, am, g, dt)
+    dobj = span_region.span_region_dobj(span, am, g, Rr, torch.float32)
+    sync()
+    pdspan = span_region.span_region_dspan_plain(obj, am, g, dt)
+    pdobj = span_region.span_region_dobj_plain(span, am, g, Rr,
+                                               torch.float32)
+    rec.update({
+        "dspan_max_abs_err":
+            (dspan.float() - pdspan.float()).abs().max().item(),
+        "dspan_scale": max(1.0, pdspan.float().abs().max().item()),
+        "dobj_max_abs_err": (dobj - pdobj).abs().max().item(),
+        "dobj_scale": max(1.0, pdobj.abs().max().item()),
+        "dspan_bitwise_repeat": bool(torch.equal(
+            dspan, span_region.span_region_dspan(obj, am, g, dt))),
+        "dobj_bitwise_repeat": bool(torch.equal(
+            dobj, span_region.span_region_dobj(span, am, g, Rr,
+                                               torch.float32))),
+    })
+    zmx, zam = span_region.span_region_fwd(span, torch.zeros_like(obj))
+    rec["ties_argmax_zero"] = bool(torch.equal(zam, torch.zeros_like(zam))
+                                   and torch.equal(zmx, torch.zeros_like(zmx)))
+    return rec
+
+
+def check_span_region(rec, what, bf16):
+    check(rec["finite"] and rec["shapes_ok"], f"{what}: non-finite or shape")
+    if bf16:
+        check(rec["argmax_agree"] >= SR_BF16_ARGMAX_AGREE
+              and rec["fwd_max_abs_err"]
+              <= SR_BF16_MAX_RTOL * rec["fwd_scale"],
+              f"{what}: K2 disagrees with plain")
+        check(rec["dspan_max_abs_err"]
+              <= SR_BF16_DSPAN_RTOL * rec["dspan_scale"],
+              f"{what}: K3 disagrees with plain")
+    else:
+        check(rec["fwd_max_abs_err"] <= SR_F32_RTOL * rec["fwd_scale"]
+              and rec["argmax_equal_off_ties"],
+              f"{what}: K2 disagrees with plain")
+        check(rec["dspan_max_abs_err"] <= SR_F32_RTOL * rec["dspan_scale"],
+              f"{what}: K3 disagrees with plain")
+    check(rec["dobj_max_abs_err"] <= SR_F32_RTOL * rec["dobj_scale"],
+          f"{what}: K4 disagrees with plain")
+    check(rec["dspan_bitwise_repeat"] and rec["dobj_bitwise_repeat"],
+          f"{what}: K3/K4 not bitwise repeatable")
+    check(rec["ties_argmax_zero"], f"{what}: all-ties argmax is not 0")
+
+
+def train_configs(dtype, attn_impl="cuda", attn_dropout=0.1, **model_kw):
+    """bench.py's CLIORA train configuration (bench.py:89-92)."""
+    model = dict(size=D, input_size=E, use_obj=True, n_regions=R,
+                 obj_feat_size=F, compute_dtype=dtype,
+                 attn_dropout=attn_dropout)
+    model.update(model_kw)
+    return (ModelConfig(**model),
+            TrainConfig(lr=5e-4, k_neg=K_NEG, vg_loss=True, use_contr=True,
+                        emb_trainable=True, attn_impl=attn_impl))
+
+
+def train_batch(rs, b, n, v, k, regions, feats):
+    return {"sentences": rs.randint(0, v, (b, n)),
+            "neg_samples": rs.choice(v, k, replace=False),
+            "obj_feats": rs.randn(b, regions, feats).astype(np.float32)}
+
+
+def perturbed(params, rs, scale=0.01):
+    """The weights with the zero-init image encoder moved off its tied
+    state (tests/test_span_region.py:87-98), as a CPU flat dict."""
+    flat = flatten(params)
+    for k in flat:
+        if k.startswith("img_encoder/"):
+            flat[k] = (scale * rs.randn(*flat[k].shape)).astype(np.float32)
+    return flat
+
+
+def train_steps(dtype, batch):
+    """TRAIN_STEPS steps of the full-width CLIORA model on one fixed batch
+    through ``Trainer.step``, K2-K4 counted per step, then the same number
+    of steps without a host sync between them and a profiled step (after
+    a warm-up step inside the profiler)."""
+    cfg, tc = train_configs(dtype)
+    tr = Trainer.build(cfg, tc, V, seed=SEED)
+    check(tr.device.type == "cuda", "trainer is not on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        before = dict(span_region.launches)
+        t0 = time.perf_counter()
+        metrics = tr.step(batch)
+        losses = {k: float(v) for k, v in metrics.items()}   # syncs
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: span_region.launches[k] - before[k] for k in SR_KERNELS}
+        rec = {"phase": "train_step", "dtype": dtype, "step": i,
+               "losses": losses, "launches_delta": delta, "ms": ms}
+        emit(rec)
+        check(all(math.isfinite(x) for x in losses.values()),
+              f"{dtype} step {i}: non-finite loss")
+        check(all(d == 2 for d in delta.values()),
+              f"{dtype} step {i}: K2/K3/K4 launches {delta}, expected 2 each")
+        steps.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = tr.step(batch)
+    torch.cuda.synchronize()
+    pipelined = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    check(math.isfinite(float(metrics["total_loss"])), "non-finite loss")
+    by_kernel = profile_kernels(lambda: tr.step(batch))
+    warm = [s["ms"] for s in steps[2:]]
+    step_ms = statistics.median(warm)
+    busy = sum(r["ms"] for r in by_kernel.values())
+    first, last = (steps[0]["losses"]["total_loss"],
+                   steps[-1]["losses"]["total_loss"])
+    summary = {
+        "phase": "train", "dtype": dtype, "batch": B, "n": N,
+        "batch_on_device": True,
+        "cuda_launches_per_step": sum(r["count"] for r in by_kernel.values()),
+        "steps": TRAIN_STEPS, "step_ms_median_warm": step_ms,
+        "sentences_per_s": B / step_ms * 1e3,
+        "pipelined_step_ms": pipelined,
+        "pipelined_sentences_per_s": B / pipelined * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "profiled_step_device_busy_ms": busy if by_kernel else "not measured",
+        "idle_share": 1 - busy / step_ms if by_kernel else "not measured",
+        "total_loss_first": first, "total_loss_last": last,
+        "launches_per_step_profiled": {k: own_launches(by_kernel, k)
+                                       for k in SR_KERNELS},
+        "top_kernels": dict(sorted(by_kernel.items(),
+                                   key=lambda kv: -kv[1]["ms"])[:12]),
+    }
+    emit(summary)
+    check(last < first, f"{dtype}: total loss did not descend on the "
+          f"fixed batch ({first} -> {last})")
+    del tr
+    torch.cuda.empty_cache()
+    return summary
+
+
+def step_grads(cfg, tc, flat, batch, device):
+    """Losses and gradients of one step's loss (no update) on ``device``."""
+    tr = Trainer(cfg, tc, params_from_numpy(flat, device), device=device)
+    tokens, neg, obj, _ = tr._place_batch(batch)
+    total, metrics = compute_losses(cfg, tc, tr.params, tokens, neg,
+                                    obj_feats=obj, train=True)
+    total.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).float()
+             for k, p in zip(flatten(tr.params), tree_leaves(tr.params))}
+    return {k: float(v.detach()) for k, v in metrics.items()}, grads
+
+
+def route_vs_chunked(rs):
+    """One full-width step's losses and gradients under attn_impl='cuda'
+    against 'chunked' on the same weights and batch, dropout off."""
+    batch = train_batch(rs, B, N, V, K_NEG, R, F)
+    base = Trainer.build(*train_configs("float32"), V, seed=SEED + 1,
+                         device="cpu")
+    flat = perturbed(base.params, rs)
+    del base
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+        for impl in ("cuda", "chunked"):
+            cfg, tc = train_configs(dtype, attn_impl=impl, attn_dropout=0.0)
+            before = dict(span_region.launches)
+            res[impl] = step_grads(cfg, tc, flat, batch, "cuda")
+            res[impl + "_launches"] = {k: span_region.launches[k] - before[k]
+                                       for k in SR_KERNELS}
+        (m_k, g_k), (m_c, g_c) = res["cuda"], res["chunked"]
+        rel = {k: abs(m_k[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in m_c}
+        cos = {}
+        for k in g_c:
+            a, b = g_k[k].reshape(-1), g_c[k].reshape(-1)
+            na, nb = a.norm().item(), b.norm().item()
+            if na > 0 and nb > 0:
+                cos[k] = (a @ b).item() / (na * nb)
+        rec = {"phase": "route_vs_chunked", "dtype": dtype,
+               "losses_cuda": m_k, "losses_chunked": m_c,
+               "loss_rel_diff": rel, "grad_cosine": cos,
+               "min_grad_cosine": min(cos.values()),
+               "launches_cuda": res["cuda_launches"],
+               "launches_chunked": res["chunked_launches"]}
+        emit(rec)
+        check(all(r <= ROUTE_LOSS_RTOL[dtype] for r in rel.values()),
+              f"{dtype}: kernel-route losses differ from chunked: {rel}")
+        check(rec["min_grad_cosine"] >= ROUTE_GRAD_COS[dtype],
+              f"{dtype}: kernel-route gradient cosine "
+              f"{rec['min_grad_cosine']}")
+        check(all(v == 2 for v in res["cuda_launches"].values())
+              and all(v == 0 for v in res["chunked_launches"].values()),
+              "route launches")
+        out[dtype] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cpu_reference(rs):
+    """A small f32 CLIORA step ('chunked') on the card and on the CPU."""
+    small = dict(b=6, n=6, v=100, k=7, regions=5, feats=32)
+    cfg, tc = train_configs("float32", attn_impl="chunked", attn_dropout=0.0,
+                            size=48, input_size=64, n_regions=5,
+                            obj_feat_size=32)
+    tc = dataclasses.replace(tc, k_neg=7)
+    base = Trainer.build(cfg, tc, 100, seed=SEED + 2, device="cpu")
+    flat = perturbed(base.params, rs)
+    batch = train_batch(rs, **small)
+    on_card, _ = step_grads(cfg, tc, flat, batch, "cuda")
+    on_cpu, _ = step_grads(cfg, tc, flat, batch, "cpu")
+    rel = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-12)
+           for k in on_cpu}
+    emit({"phase": "cpu_reference", "path": "train", "shape": [6, 6, 48],
+          "losses_card": on_card, "losses_cpu": on_cpu, "rel_diff": rel})
+    check(all(r <= CPU_LOSS_RTOL for r in rel.values()),
+          f"card and CPU train-step losses differ: {rel}")
+
+
+def span_region_timing(span, obj, g, am):
+    """Each of K2-K4 against its plain version on the same inputs: plain,
+    kernel, kernel, plain; and its CUDA launches per call."""
+    dt = span.dtype
+    Rr = obj.shape[1]
+    calls = {
+        "span_region_fwd": (
+            lambda: span_region.span_region_fwd(span, obj),
+            lambda: span_region.span_region_fwd_plain(span, obj)),
+        "span_region_dspan": (
+            lambda: span_region.span_region_dspan(obj, am, g, dt),
+            lambda: span_region.span_region_dspan_plain(obj, am, g, dt)),
+        "span_region_dobj": (
+            lambda: span_region.span_region_dobj(span, am, g, Rr,
+                                                 torch.float32),
+            lambda: span_region.span_region_dobj_plain(span, am, g, Rr,
+                                                       torch.float32)),
+    }
+    out = {}
+    for name, (kern, plain) in calls.items():
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                          cuda_ms(plain))
+        by_kernel = profile_kernels(kern)
+        out[name] = {"ms": statistics.median(k1 + k2),
+                     "plain_ms": statistics.median(p1 + p2),
+                     **sr_bound(name, span, obj), "library_ms": None,
+                     "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
+                     "cuda_launches_per_call": own_launches(by_kernel, name)}
+        emit({"phase": "timing", "name": name, "dtype": str(dt),
+              "span": list(span.shape), "obj": list(obj.shape),
+              **out[name]})
+    return out
+
+
+def train_path(rs):
+    """K2-K4 against their plain versions, the train steps, the route and
+    CPU comparisons, timing.  Returns the K2-K4 entries of the kernels
+    line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # the two calls of a step: VG (x_word x obj_word, f32) and contrastive
+    # ((inside_h + outside_h) x obj_span, bf16 charts); an odd shape
+    shapes = {"vg": (B, N, B, "float32"),
+              "contrastive": (B, ncells(N), B, "bfloat16"),
+              "odd": (37, 13, 37, None)}
+    checked, inputs = {}, {}
+    for tag, (a, m, c, only) in shapes.items():
+        for dtype in ((only,) if only else ("float32", "bfloat16")):
+            tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            span = randn(a, m, D).to(tdt)
+            obj, g = randn(c, R, D), randn(a, c, m)
+            rec = span_region_vs_plain(span, obj, g)
+            emit({"phase": "kernel", "name": "span_region", "case": tag,
+                  "dtype": dtype, "span": [a, m, D], "obj": [c, R, D], **rec})
+            check_span_region(rec, f"span_region {tag} {dtype}",
+                              dtype == "bfloat16")
+            checked[(tag, dtype)] = rec
+            if tag != "odd":
+                inputs[tag] = (span, obj, g)
+    torch.cuda.empty_cache()
+
+    # -- the main path: full-width CLIORA train steps through Trainer.step,
+    # on a batch kept on the card as bench.py keeps it (a prefetching
+    # pipeline uploads the next batch while a step runs)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in train_batch(rs, B, N, V, K_NEG, R, F).items()}
+    for k in span_region.launches:
+        span_region.launches[k] = 0
+    train = {dtype: train_steps(dtype, batch)
+             for dtype in ("bfloat16", "float32")}
+    path_launches = dict(span_region.launches)
+    check(all(v >= 2 * TRAIN_STEPS for v in path_launches.values()),
+          f"the train path skipped a span_region kernel: {path_launches}")
+
+    route_vs_chunked(rs)
+    train_cpu_reference(rs)
+
+    # -- timing at the main path's shapes
+    timing = {}
+    for tag in ("contrastive", "vg"):
+        span, obj, g = inputs[tag]
+        _, am = span_region.span_region_fwd(span, obj)
+        timing[tag] = span_region_timing(span, obj, g, am)
+    entries = []
+    for name in SR_KERNELS:
+        main, vg = timing["contrastive"][name], timing["vg"][name]
+        err_key = {"span_region_fwd": "fwd_max_abs_err",
+                   "span_region_dspan": "dspan_max_abs_err",
+                   "span_region_dobj": "dobj_max_abs_err"}[name]
+        entries.append({
+            "name": name, **KERNELS[name],
+            "launches": path_launches[name],
+            "max_abs_err": checked[("contrastive", "bfloat16")][err_key],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "dtype": "bfloat16",
+            "span": [B, ncells(N), D], "obj": [B, R, D],
+            "cuda_launches_per_call": main["cuda_launches_per_call"],
+            "launches_per_step_profiled": {
+                dt: train[dt]["launches_per_step_profiled"][name]
+                for dt in train},
+            "vg_f32": {k: vg[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")}
+            | {"max_abs_err": checked[("vg", "float32")][err_key],
+               "span": [B, N, D]},
+        })
+    return entries
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # the plain versions are the reference: full f32 matmuls, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "allow_tf32": {"matmul": False, "cudnn": False}})
+
+    # -- build every kernel of the paths from this checkout's sources
+    t0 = time.perf_counter()
+    built = kernels.build(SOURCES, force=True)
+    emit({"phase": "build", "sources": list(SOURCES), "parallel": True,
+          "wall_seconds": time.perf_counter() - t0})
+    for name in SOURCES:
+        rec = built[name]
+        emit({"phase": "build", "kernel": name, "seconds": rec["seconds"],
+              **ptxas_summary(rec["ptxas"]), "ptxas": rec["ptxas"]})
+    # the host decoder builds at first use too: build it here, not inside
+    # the first timed request
+    t0 = time.perf_counter()
+    decoder_mod = native.load()
+    emit({"phase": "build", "decoder": "native" if decoder_mod else "python",
+          "seconds": time.perf_counter() - t0})
+
+    rs = np.random.RandomState(SEED)
+    entries = [parse_path(rs)]
+    torch.cuda.empty_cache()
+    entries += train_path(rs)
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Closed-form gather indices for the inside chart pass.
+"""Closed-form gather indices for the inside and outside chart passes.
 
-The port's own copy of the inside half of cliora_tpu/chart/indices.py,
+The port's own copy of cliora_tpu/chart/indices.py's index builders,
 plus a cache of the index arrays as device tensors per
 ``(n, level, device)``.
 
@@ -12,6 +12,15 @@ entry ``j = p * N + k``, so a gather of shape ``(B, L*N, D)`` reshapes to
 ``(B, L, N, D)`` with the split axis last.  (Same layout contract as the
 reference's ``.transpose(0,1).flatten()``:
 cliora/net/inside_index.py:192-196.)
+
+Outside, at target level ``level`` (``L = n - level`` targets, each with
+``N = L - 1`` (parent, sibling) derivations): target ``(level, p)`` =
+span ``[i, j) = [p, p+level+1)``; combination ``c < p`` is the
+left-extension with parent ``[c, j)`` and sibling ``[c, i)``, ``c >= p``
+the right-extension with parent ``[i, b)`` and sibling ``[j, b)``,
+``b = j + (c - p) + 1``.  Arrays are combination-major, entry
+``c * L + p``, so a gather reshapes to ``(B, N, L, D)`` and the
+derivation softmax runs over axis 1.
 """
 
 from __future__ import annotations
@@ -43,27 +52,67 @@ def inside_index(n: int, level: int) -> Tuple[np.ndarray, np.ndarray]:
     )
 
 
+def outside_index(n: int, level: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather indices for the outside pass at ``level``.
+
+    Returns ``(par_idx, sis_idx)``, each ``(N * L,)`` int32,
+    combination-major (``entry = c * L + p``).  ``par_idx`` indexes the
+    *outside* chart; ``sis_idx`` indexes the *inside* chart.
+    """
+    assert 0 <= level <= n - 2
+    L = n - level
+    N = L - 1
+    p = np.arange(L, dtype=np.int64)[None, :]   # (1, L) target positions
+    c = np.arange(N, dtype=np.int64)[:, None]   # (N, 1) combination ids
+    j = p + level + 1                           # exclusive end of target span
+
+    left = c < p                                # left-extension combos
+    a = c                                       # sibling/parent start (left)
+    b = j + (c - p) + 1                         # parent end (right)
+
+    par_level = np.where(left, level + p - a, level + b - j)
+    par_pos = np.where(left, a, p)
+    sis_level = np.where(left, p - a - 1, b - j - 1)
+    sis_pos = np.where(left, a, j)
+
+    # Clip to keep cell_index well-defined for combos that would be invalid
+    # on shorter padded sentences; at full length every combo is valid.
+    par_idx = cell_index(n, np.minimum(par_level, n - 1), par_pos)
+    sis_idx = cell_index(n, np.minimum(sis_level, n - 1), sis_pos)
+    return (
+        par_idx.reshape(-1).astype(np.int32),
+        sis_idx.reshape(-1).astype(np.int32),
+    )
+
+
 class ChartIndex:
-    """Memoized per-``(n, level, device)`` inside index tensors (int64,
-    the index dtype of ``torch.index_select`` and advanced indexing).
+    """Memoized per-``(n, level, device)`` index tensors (int64, the index
+    dtype of advanced indexing).
 
     The key set is bounded by the sentence lengths a process sees.
     """
 
     def __init__(self):
-        self._inside: Dict[Tuple[int, int, torch.device],
-                           Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._cache: Dict[Tuple[str, int, int, torch.device],
+                          Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _get(self, kind, build, n, level, device):
+        device = torch.device(device)
+        key = (kind, n, level, device)
+        if key not in self._cache:
+            a, b = build(n, level)
+            self._cache[key] = (
+                torch.from_numpy(a.astype(np.int64)).to(device),
+                torch.from_numpy(b.astype(np.int64)).to(device))
+        return self._cache[key]
 
     def inside(self, n: int, level: int, device) -> Tuple[torch.Tensor,
                                                           torch.Tensor]:
-        device = torch.device(device)
-        key = (n, level, device)
-        if key not in self._inside:
-            idx_l, idx_r = inside_index(n, level)
-            self._inside[key] = (
-                torch.from_numpy(idx_l.astype(np.int64)).to(device),
-                torch.from_numpy(idx_r.astype(np.int64)).to(device))
-        return self._inside[key]
+        return self._get("inside", inside_index, n, level, device)
+
+    def outside(self, n: int, level: int, device) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+        return self._get("outside", outside_index, n, level, device)
 
 
 # Process-wide cache; index tensors are small and never written.

@@ -71,35 +71,47 @@ def _ptxas_report(stderr: str):
 
 
 def build(names: Iterable[str], force: bool = False) -> Dict[str, dict]:
-    """Compile the named sources, one ``nvcc`` run each.
+    """Compile the named sources, one ``nvcc`` process each, all started
+    together.
 
     Skips a source whose library exists unless ``force``.  Returns
     ``{name: {"seconds", "path", "ptxas"}}`` for the sources it built.
-    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    Raises ``RuntimeError`` with the compiler's output if a build fails;
+    every process it started has ended when it returns or raises.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
-    built = {}
-    for name in names:
-        out = lib_path(name)
-        if os.path.exists(out) and not force:
-            continue
-        tmp = f"{out}.tmp{os.getpid()}"
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
+    todo = [n for n in dict.fromkeys(names)
+            if force or not os.path.exists(lib_path(n))]
+    jobs = {}
+    try:
+        for name in todo:
+            out = lib_path(name)
+            tmp = f"{out}.tmp{os.getpid()}"
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
-                capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S)
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs[name] = (proc, out, tmp, time.perf_counter())
+        built, failed = {}, []
+        for name, (proc, out, tmp, t0) in jobs.items():
+            stdout, stderr = proc.communicate(timeout=_BUILD_TIMEOUT_S)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"CUDA kernel build failed: {name}: nvcc exit "
-                    f"{proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                              f"{stdout}\n{stderr}")
+                continue
             os.replace(tmp, out)
-        finally:
+            built[name] = {"seconds": time.perf_counter() - t0, "path": out,
+                           "ptxas": _ptxas_report(stderr)}
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: "
+                               + "\n".join(failed))
+        return built
+    finally:
+        for proc, _, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        built[name] = {"seconds": time.perf_counter() - t0, "path": out,
-                       "ptxas": _ptxas_report(proc.stderr)}
-    return built
 
 
 def load(name: str) -> ctypes.CDLL:

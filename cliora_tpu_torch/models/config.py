@@ -2,9 +2,8 @@
 
 Mirrors the reference's model flags (reference:
 cliora/scripts/train.py:337-345, cliora/net/trainer.py:504-558).  The
-remat knobs and the TreeLSTM arch are not carried over; the CLIORA
-visual path (``use_obj``) and the ``word`` baseline arrive with later
-slices of the port and raise until then.
+remat knobs and the TreeLSTM arch are not carried over; the ``word``
+baseline arrives with a later slice of the port and raises until then.
 """
 
 from __future__ import annotations
@@ -22,6 +21,10 @@ class ModelConfig:
     compress: bool = False          # outside root = inside root @ mat
     outside: bool = True            # run the outside pass
     use_obj: bool = False           # CLIORA: visual region features
+    n_regions: int = 36             # MAF regions per image
+    obj_feat_size: int = 2048       # Faster-R-CNN feature width
+    attn_dropout: float = 0.1       # AttentionHead dropout (cliora.py:32)
+    attn_temp: float = 1.0          # AttentionHead temperature
     compute_dtype: str = "float32"  # matmul/chart dtype (bfloat16 opt-in)
     # 'soft': softmax-weighted split aggregation (DIORA); 'hard': argmax
     # split only (the S-DIORA greedy variant)
@@ -37,11 +40,6 @@ class ModelConfig:
             raise NotImplementedError(
                 f"arch={self.arch!r}: the port runs the mlp compose only; "
                 "the treelstm and word archs come with a later slice")
-        if self.use_obj:
-            raise NotImplementedError(
-                "use_obj=True: the CLIORA visual path (region attention, "
-                "outside pass, span x region kernels) comes with the "
-                "CLIORA slice of the port")
         if self.normalize not in ("unit", "none"):
             raise ValueError(f"normalize={self.normalize!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -50,3 +48,5 @@ class ModelConfig:
             raise ValueError(f"aggregate={self.aggregate!r}")
         if self.parse_impl not in ("auto", "plain", "cuda"):
             raise ValueError(f"parse_impl={self.parse_impl!r}")
+        if not 0.0 <= self.attn_dropout < 1.0:
+            raise ValueError(f"attn_dropout={self.attn_dropout!r}")

@@ -4,7 +4,9 @@ Parameters are nested dicts of tensors with the JAX package's tree and
 keys; linear weights use the torch ``(out, in)`` layout.  Every
 parameter is drawn from N(0, 1) -- the reference calls
 ``param.data.normal_()`` on everything after construction
-(cliora/net/diora.py:234-237, cliora/net/trainer.py:214-217,41-44).  The
+(cliora/net/diora.py:234-237, cliora/net/trainer.py:214-217,41-44) --
+and the image encoder of a CLIORA model is zero (cliora/net/utils.py:
+45-50).  The
 draws come from an explicit ``torch.Generator`` on the CPU, so a seed
 gives the same weights on every device; they differ from the JAX
 package's ``jax.random`` draws (carry those across with
@@ -76,16 +78,34 @@ def init_embed_params(gen, cfg: ModelConfig, embeddings):
     }
 
 
+def init_image_encoder_params(cfg: ModelConfig):
+    """Zero-initialized region-feature projections ("keep same with MAF").
+
+    (reference: cliora/net/utils.py:37-55 ``ImageEncoder``)
+    """
+    D, F = cfg.size, cfg.obj_feat_size
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32)
+
+    return {
+        "fc": {"w": zeros(D, F), "b": zeros(D)},
+        "fc_vis": {"w": zeros(D, F), "b": zeros(D)},
+    }
+
+
 def init_recon_params(gen, cfg: ModelConfig):
     """(reference: cliora/net/trainer.py:25-44 ReconstructionSoftmaxLoss)"""
     return {"mat": _normal(gen, cfg.size, cfg.input_size)}
 
 
 def to_device(tree, device):
-    """Nested dict of tensors -> the same tree on ``device``."""
+    """Nested dict of tensors -> the same tree on ``device``, as leaf
+    tensors outside any autograd graph (sharing storage where ``device``
+    is already theirs)."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.detach().to(device)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, embeddings,
@@ -99,6 +119,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, embeddings,
         "diora": init_diora_params(gen, cfg),
         "reconstruct": init_recon_params(gen, cfg),
     }
+    if cfg.use_obj:
+        params["img_encoder"] = init_image_encoder_params(cfg)
     return to_device(params, device)
 
 

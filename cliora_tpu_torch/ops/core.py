@@ -7,6 +7,8 @@ as the JAX package, so weights carry across without transposes.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 TINY = 1e-8
@@ -66,13 +68,121 @@ def compose_mlp(cp, left_h, right_h, compute_dtype=torch.float32,
     return h.to(out_dtype)
 
 
+def einsum_acc(pattern: str, x: torch.Tensor, y: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(pattern, x, y)`` accumulated in f32, returned in
+    ``out_dtype``: the port's stand-in for JAX's
+    ``preferred_element_type``, which PyTorch's einsum lacks.
+
+    Where the output dtype is the operands' own (bf16 x bf16 -> bf16, or
+    f32) the native product already accumulates in f32 (cuBLAS and
+    oneDNN bf16 GEMMs do) and rounds once.  Otherwise (bf16 operands, f32
+    out) both operands are widened to f32 first: a bf16 value is exact in
+    f32, so the f32 product of the widened operands equals the
+    bf16-operand, f32-accumulated product, with no rounding of the
+    result to bf16.
+    """
+    if x.dtype == y.dtype == out_dtype:
+        return torch.einsum(pattern, x, y)
+    return torch.einsum(pattern, x.float(), y.float()).to(out_dtype)
+
+
+def _einsum_bwd_patterns(pattern: str):
+    ins, out = pattern.split("->")
+    a, b = ins.split(",")
+    return f"{out},{b}->{a}", f"{a},{out}->{b}"
+
+
+def _bwd_einsum(pattern: str, u: torch.Tensor, v: torch.Tensor,
+                want: torch.dtype) -> torch.Tensor:
+    """One cotangent of ``lowp_einsum``: a contraction is accumulated in
+    f32 (:func:`einsum_acc`); a contraction-free pattern is the
+    elementwise product in the operands' dtype, then cast, as JAX's
+    ``_einsum_or_bcast`` computes it (cliora_tpu/ops/core.py:119-137)."""
+    ins, out = pattern.split("->")
+    if set(ins.replace(",", "")) - set(out) - {"."}:
+        return einsum_acc(pattern, u, v, want)
+    return torch.einsum(pattern, u, v).to(want)
+
+
+class _LowpEinsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pattern, x, y, compute_dtype, out_dtype):
+        ctx.pattern, ctx.compute_dtype = pattern, compute_dtype
+        ctx.save_for_backward(x, y)
+        return einsum_acc(pattern, x.to(compute_dtype), y.to(compute_dtype),
+                          out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        cdt = ctx.compute_dtype
+        dx_pat, dy_pat = _einsum_bwd_patterns(ctx.pattern)
+        g16 = g.to(cdt)
+        dx = dy = None
+        if ctx.needs_input_grad[1]:
+            dx = _bwd_einsum(dx_pat, g16, y.to(cdt), x.dtype)
+        if ctx.needs_input_grad[2]:
+            dy = _bwd_einsum(dy_pat, x.to(cdt), g16, y.dtype)
+        return None, dx, dy, None, None
+
+
+def lowp_einsum(pattern: str, x: torch.Tensor, y: torch.Tensor,
+                compute_dtype=torch.float32,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """Two-operand einsum on ``compute_dtype`` operands, accumulated in
+    f32 and returned in ``out_dtype``, whose backward also runs in
+    ``compute_dtype``: the incoming cotangent is cast down once and each
+    operand's cotangent comes back in that operand's own dtype (f32
+    operands, such as softmax probabilities, get f32-accumulated
+    gradients).  For f32 inputs it is the plain einsum and its autodiff.
+    (counterpart of cliora_tpu/ops/core.py:86-149 ``lowp_einsum``)
+    """
+    return _LowpEinsum.apply(pattern, x, y, compute_dtype, out_dtype)
+
+
 def bilinear(mat, a, b, compute_dtype=torch.float32) -> torch.Tensor:
     """Split-compatibility score ``s = a^T M b`` per row, f32 out.
 
     The intermediate ``a @ M`` projection is *stored* in the compute
     dtype before the second contraction, which takes compute-dtype
-    operands and accumulates in f32 (the JAX package's ``lowp_einsum``
-    contract).  (reference: cliora/net/diora.py:77-97 ``Bilinear``)
+    operands and accumulates in f32; the backward stays in the compute
+    dtype (``lowp_einsum``).  (reference: cliora/net/diora.py:77-97
+    ``Bilinear``)
     """
-    am = a.to(compute_dtype) @ mat.to(compute_dtype)
-    return torch.sum(am.float() * b.to(compute_dtype).float(), dim=-1)
+    am = lowp_einsum("...me,ed->...md", a, mat, compute_dtype, compute_dtype)
+    return lowp_einsum("...md,...md->...m", am, b, compute_dtype)
+
+
+def region_attention(h: torch.Tensor, obj: torch.Tensor, *,
+                     temp: float = 1.0, dropout: float = 0.0,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """Single-head cross-attention from span vectors to object regions.
+
+    Per-example only: the reference computes a B x B einsum and takes its
+    diagonal (cliora/net/cliora.py:35-42); this computes just the
+    diagonal.  No learned projections: q/k/v are used raw.  Dropout on
+    the attention probabilities draws from ``generator``, which must live
+    on ``h``'s device.  (counterpart of cliora_tpu/ops/core.py:169-191)
+
+    Args:
+      h:   (B, L, D) query span vectors.
+      obj: (B, R, D) region embeddings (keys == values).
+    Returns:
+      cxt: (B, L, D) attended visual context, in ``h``'s dtype.
+    """
+    score = lowp_einsum("bld,brd->blr", h, obj, compute_dtype) / temp
+    prob = torch.softmax(score, dim=-1)
+    if train and dropout > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a torch.Generator")
+        keep = torch.rand(prob.shape, generator=generator,
+                          device=prob.device) < 1.0 - dropout
+        prob = torch.where(keep, prob / (1.0 - dropout),
+                           torch.zeros((), dtype=prob.dtype,
+                                       device=prob.device))
+    # context comes back in the caller's h dtype: the residual add and
+    # re-norm then stay in the chart dtype
+    return lowp_einsum("blr,brd->bld", prob, obj, compute_dtype, h.dtype)

@@ -6,7 +6,7 @@ the convention of the JAX package's ``flatten``/``unflatten_like``
 checkpoints.  Linear weights use the torch ``(out, in)`` layout in both
 packages, so carrying weights across is a rename-free copy: nothing is
 transposed.  Optimizer state and the reference ``.pt`` interop come with
-the training slice of the port.
+a later slice of the port.
 """
 
 from __future__ import annotations

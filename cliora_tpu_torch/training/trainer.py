@@ -1,16 +1,22 @@
-"""Trainer: owns the parameters and runs the parse path.
+"""Training engine: loss assembly, the masked-Adam step, eval and parse.
 
-Counterpart of cliora_tpu/training/trainer.py for this slice of the
-port: building a model and ``Trainer.parse``, the decode-only text
-parse that scripts/parse_diora.py and analysis/eval.py call in the JAX
-package.  The optimizer, the losses and the train step come with the
-training slice.
+Counterpart of cliora_tpu/training/trainer.py for the slices ported so
+far: ``Trainer.step`` (one optimizer step, or the eval step), and
+``Trainer.parse``, the decode-only text parse that scripts/parse_diora.py
+and analysis/eval.py call in the JAX package.
+
+The step runs embed -> image encoder -> leaf transform with region
+attention -> inside pass with region attention -> outside pass ->
+reconstruction, VG and contrastive losses -> backward -> global-norm clip
+-> Adam.  Parameters stay f32 whatever ``compute_dtype`` says.  Frozen
+parameters get no gradient and no Adam state, so the clip norm is taken
+over the trainable ones (reference: cliora/net/trainer.py:450-455).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -18,21 +24,205 @@ import torch
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import (
     diora_forward,
+    embed_forward,
     embed_span,
+    image_encoder_forward,
     leaf_transform,
 )
 from cliora_tpu_torch.models.params import init_params, to_device
 from cliora_tpu_torch.ops import inside_cky
+from cliora_tpu_torch.ops.span_region import span_region_max
+from cliora_tpu_torch.training.losses import (
+    contrastive_loss,
+    contrastive_loss_from_scores,
+    reconstruction_loss,
+    vg_loss,
+    vg_loss_from_scores,
+)
+
+ATTN_IMPLS = ("einsum", "chunked", "cuda")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer + loss configuration (reference flags:
-    cliora/scripts/train.py:337-401).
+    """Optimizer + loss configuration.
 
-    The text-only parse reads none of its fields, so it has none yet: the
-    optimizer and loss fields arrive with the training slice.
+    (reference flags: cliora/scripts/train.py:337-401; optimizer:
+    cliora/net/trainer.py:580)
     """
+    lr: float = 5e-4
+    grad_clip: float = 5.0
+    k_neg: int = 100
+    emb_trainable: bool = False     # --emb none and not finetuning
+    vg_loss: bool = False           # --vg_loss
+    alpha_vg: float = 1.0
+    use_contr: bool = False         # --obj_feats --use_contr
+    alpha_contr: float = 1.0
+    vl_margin: float = 0.2          # --vl_margin (hinge margin)
+    freeze: str = "none"            # 'none' | 'diora' | 'except_vis'
+    # span x region max reduction in training: 'einsum' materializes the
+    # (B, B, cells, R) tensor (reference semantics); 'chunked' and 'cuda'
+    # fuse the max (ops/span_region.py), 'cuda' with kernels K2-K4
+    attn_impl: str = "einsum"
+    # gradient accumulation and ZeRO-1 come with later slices of the port
+    accum_steps: int = 1
+    zero1: bool = False
+
+    def __post_init__(self):
+        if self.freeze not in ("none", "diora", "except_vis"):
+            raise ValueError(f"freeze={self.freeze!r}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={self.attn_impl!r}, expected one "
+                             f"of {ATTN_IMPLS}")
+        if self.accum_steps != 1:
+            raise NotImplementedError(
+                "accum_steps != 1: gradient accumulation comes with a later "
+                "slice of the port")
+        if self.zero1:
+            raise NotImplementedError(
+                "zero1: sharded optimizer state comes with the parallelism "
+                "slice of the port")
+
+
+def trainable_mask(tc: TrainConfig, params) -> Any:
+    """Tree of bools mirroring torch ``requires_grad``.
+
+    (reference: cliora/net/trainer.py:351-358 freeze_diora /
+    freeze_except_vis; embedding freeze: trainer.py:536-546)
+    """
+    def decide(keys) -> bool:
+        if tc.freeze == "except_vis":
+            return any("_vis" in k for k in keys)
+        if "embeddings" in keys:
+            return tc.emb_trainable
+        if tc.freeze == "diora" and keys[0] == "diora":
+            return False
+        return True
+
+    def walk(keys, node):
+        if isinstance(node, dict):
+            return {k: walk(keys + (k,), v) for k, v in node.items()}
+        return decide(keys)
+
+    return walk((), params)
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a nested dict, in the order of ``checkpoint.flatten``."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+    """``g * max_norm / norm`` for every gradient when the global norm is
+    at least ``max_norm``, else ``g`` -- ``optax.clip_by_global_norm``'s
+    rule (divide by the norm, then multiply), computed on the device with
+    no host sync.  (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
+    norm and scales below it too, so it would not match.)  Returns
+    ``(clipped grads, norm)``."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads], norm
+
+
+def make_optimizer(tc: TrainConfig, params, mask) -> torch.optim.Adam:
+    """Adam(lr, (0.9, 0.999), 1e-8) over the trainable parameters only;
+    the clip (:func:`clip_by_global_norm`) runs before it in
+    ``Trainer.step``.  ``torch.optim.Adam``'s update is optax's
+    ``adam``: ``m_hat / (sqrt(v_hat) + eps)``."""
+    trainable = [p for p, m in zip(tree_leaves(params), tree_leaves(mask))
+                 if m]
+    return torch.optim.Adam(trainable, lr=tc.lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def forward_outputs(cfg: ModelConfig, tc: TrainConfig, params,
+                    tokens: torch.Tensor, obj_feats=None,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = True, with_cky: bool = False,
+                    outside=None, lengths=None):
+    """Embed -> image-encode -> diora forward (reference: Net.forward,
+    cliora/net/trainer.py:272-304).
+
+    Returns ``(out, aux)``; aux carries the embedding and region vectors
+    the fused-score losses need.
+    """
+    x_span, x_word = embed_forward(params["embed"], tokens,
+                                   trainable=tc.emb_trainable)
+    obj_span = obj_word = None
+    if cfg.use_obj:
+        obj_span, obj_word = image_encoder_forward(params["img_encoder"],
+                                                   obj_feats)
+    need_all_atten = cfg.use_obj and (tc.use_contr or not train)
+    out = diora_forward(
+        cfg, params, x_span, x_word, obj_span=obj_span, obj_word=obj_word,
+        generator=generator, train=train, with_cky=with_cky,
+        outside=outside, with_all_atten=need_all_atten,
+        materialize_atten=(tc.attn_impl == "einsum"), lengths=lengths)
+    aux = {"x_word": x_word, "obj_span": obj_span, "obj_word": obj_word}
+    return out, aux
+
+
+def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
+                neg_samples, out, aux=None,
+                lengths=None) -> Dict[str, torch.Tensor]:
+    """All enabled losses from forward outputs.
+
+    (reference: Net.compute_loss, cliora/net/trainer.py:243-270)
+    """
+    metrics: Dict[str, torch.Tensor] = {}
+    recon = reconstruction_loss(
+        params["reconstruct"], params["embed"]["embeddings"], tokens,
+        neg_samples, out.chart.outside_h, lengths=lengths)
+    metrics["reconstruction_softmax_loss"] = recon
+    total = recon
+
+    # fused reductions replace the materialized tensors only when the
+    # forward skipped them (training with attn_impl != 'einsum'); eval
+    # keeps the reference's eval-time score mixing (cliora.py:459-464)
+    if tc.vg_loss and cfg.use_obj:
+        if out.vg_atten_score is None:
+            prm = span_region_max(aux["x_word"], aux["obj_word"],
+                                  tc.attn_impl)
+            vgl = vg_loss_from_scores(prm, alpha_vg=tc.alpha_vg,
+                                      lengths=lengths)
+        else:
+            vgl = vg_loss(out.vg_atten_score, alpha_vg=tc.alpha_vg,
+                          lengths=lengths)
+        metrics["vg_loss"] = vgl
+        total = total + vgl
+    if tc.use_contr and cfg.use_obj:
+        if out.all_atten_score is None:
+            span_vec = out.chart.inside_h + out.chart.outside_h
+            scores = span_region_max(span_vec, aux["obj_span"], tc.attn_impl)
+            ctr = contrastive_loss_from_scores(
+                out.chart.inside_s, out.chart.outside_s, scores,
+                margin=tc.vl_margin, alpha_contr=tc.alpha_contr,
+                lengths=lengths)
+        else:
+            ctr = contrastive_loss(
+                out.chart.inside_s, out.chart.outside_s, out.all_atten_score,
+                margin=tc.vl_margin, alpha_contr=tc.alpha_contr,
+                lengths=lengths)
+        metrics["contrastive_loss"] = ctr
+        total = total + ctr
+
+    metrics["total_loss"] = total
+    return metrics
+
+
+def compute_losses(cfg: ModelConfig, tc: TrainConfig, params, tokens,
+                   neg_samples, obj_feats=None,
+                   generator: Optional[torch.Generator] = None,
+                   train: bool = True, lengths=None):
+    """Forward + all enabled losses; returns ``(total, metrics)``."""
+    out, aux = forward_outputs(cfg, tc, params, tokens, obj_feats=obj_feats,
+                               generator=generator, train=train,
+                               lengths=lengths)
+    metrics = losses_from(cfg, tc, params, tokens, neg_samples, out, aux,
+                          lengths=lengths)
+    return metrics["total_loss"], metrics
 
 
 def _default_device() -> torch.device:
@@ -43,8 +233,14 @@ def _default_device() -> torch.device:
     return torch.device("cuda")
 
 
+# seed of the dropout stream; step k draws from a generator seeded with
+# DROPOUT_SEED + k
+DROPOUT_SEED = 1729
+
+
 class Trainer:
-    """Holds the model config, the parameters and their device.
+    """Holds the model config, the parameters, the optimizer and their
+    device.
 
     (reference: cliora/net/trainer.py:337-501 ``Trainer``)
     """
@@ -56,6 +252,13 @@ class Trainer:
         self.device = (_default_device() if device is None
                        else torch.device(device))
         self.params = to_device(params, self.device)
+        self.mask = trainable_mask(tc, self.params)
+        for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
+            p.requires_grad_(m)
+        self.optimizer = make_optimizer(tc, self.params, self.mask)
+        # host-side step counter for the dropout stream: reading a device
+        # counter would sync every step
+        self._host_step = 0
 
     @classmethod
     def build(cls, cfg: ModelConfig, tc: TrainConfig, embeddings,
@@ -70,6 +273,79 @@ class Trainer:
         return cls(cfg, tc, init_params(gen, cfg, embeddings, device),
                    device=device)
 
+    def _place_batch(self, batch_map):
+        """The batch's arrays as tensors on this trainer's device: numpy
+        arrays are uploaded, tensors already there are used as they are
+        (a prefetching pipeline keeps batches on the device)."""
+        def put(x, dtype):
+            if not isinstance(x, torch.Tensor):
+                x = np.asarray(x)
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        tokens = put(batch_map["sentences"], torch.int64)
+        neg = put(batch_map["neg_samples"], torch.int64)
+        obj = batch_map.get("obj_feats")
+        obj = None if obj is None else put(obj, torch.float32)
+        lengths = batch_map.get("lengths")
+        lengths = None if lengths is None else put(lengths, torch.int64)
+        return tokens, neg, obj, lengths
+
+    def dropout_generator(self, step: int) -> torch.Generator:
+        """The dropout stream of train step ``step``.  Dropout carries no
+        parity contract with the JAX package (its draws come from
+        ``jax.random``)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(DROPOUT_SEED + step)
+        return gen
+
+    def step(self, batch_map: Dict[str, Any], train: bool = True,
+             generator: Optional[torch.Generator] = None):
+        """One optimization step (``train=True``) or one eval step from a
+        host-side batch_map.
+
+        batch_map: {'sentences': (B, L) int, 'neg_samples': (k,) int,
+                    'obj_feats': (B, R, F) float (CLIORA),
+                    'lengths': optional (B,) true lengths}, numpy
+        arrays or tensors
+        ``generator`` overrides the step's dropout stream.  The eval step
+        materializes the attention scores and mixes ``vg_atten`` as at
+        eval (cliora.py:462-464).  Returns a dict of device-resident
+        scalar tensors: nothing here waits for the device (float() them
+        when logging).
+        """
+        tokens, neg, obj, lengths = self._place_batch(batch_map)
+        if not train:
+            with torch.no_grad():
+                _, metrics = compute_losses(
+                    self.cfg, self.tc, self.params, tokens, neg,
+                    obj_feats=obj, train=False, lengths=lengths)
+            return metrics
+        if generator is None:
+            generator = self.dropout_generator(self._host_step)
+        self._host_step += 1
+        trainable = self.optimizer.param_groups[0]["params"]
+        self.optimizer.zero_grad(set_to_none=True)
+        total, metrics = compute_losses(
+            self.cfg, self.tc, self.params, tokens, neg, obj_feats=obj,
+            generator=generator, train=True, lengths=lengths)
+        total.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in trainable]
+        clipped, _ = clip_by_global_norm(grads, self.tc.grad_clip)
+        for p, g in zip(trainable, clipped):
+            p.grad = g
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def parameter_norm(self, trainable_only: bool = True) -> float:
+        """Sum of per-parameter L2 norms (reference: trainer.py:360-367)."""
+        total = 0.0
+        for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
+            if trainable_only and not m:
+                continue
+            total += float(torch.linalg.vector_norm(p.detach().reshape(-1)))
+        return total
+
     def _route(self, impl: Optional[str], batch_map) -> str:
         impl = impl or self.cfg.parse_impl
         if impl not in ("auto", "plain", "cuda"):
@@ -78,9 +354,10 @@ class Trainer:
             impl = "cuda" if self.device.type == "cuda" else "plain"
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError("impl='cuda' needs a trainer on a CUDA device")
-        # the fused kernel implements the mlp compose + soft split softmax
-        # over full-length sentences only (the JAX package's gating,
-        # cliora_tpu/training/trainer.py:745-757)
+        # the fused kernel implements the text-only mlp compose + soft
+        # split softmax over full-length sentences only (the JAX
+        # package's gating, cliora_tpu/training/trainer.py:745-757; a
+        # CLIORA model is refused by parse before it gets here)
         if impl == "cuda":
             B, n = np.shape(batch_map["sentences"])
             if (self.cfg.aggregate != "soft"
@@ -106,25 +383,33 @@ class Trainer:
         split can still pick another backpointer on rare cells; under bf16
         charts the split scores also round at different points.  Published
         trees are therefore attributed to their route.
+
+        A CLIORA model (``use_obj``) raises: its parse (region attention,
+        the outside pass, the span x region scores) is a later slice, and
+        a text-only parse would silently ignore its images.
         """
+        if self.cfg.use_obj:
+            raise NotImplementedError(
+                "Trainer.parse on a CLIORA model (use_obj=True): the CLIORA "
+                "parse comes with a later slice of the port")
         if compute_loss:
             raise NotImplementedError(
-                "compute_loss: the losses come with the training slice "
-                "of the port")
+                "compute_loss: parse-time losses come with the CLIORA "
+                "parse slice of the port")
         if with_chart:
             raise NotImplementedError(
-                "with_chart: chart outputs come with the training slice "
-                "of the port (the outside pass)")
+                "with_chart: chart outputs come with the CLIORA parse "
+                "slice of the port")
         if outside:
             raise NotImplementedError(
-                "outside=True: the outside pass comes with the training "
-                "slice of the port")
+                "outside=True: a parse with the outside pass comes with "
+                "the CLIORA parse slice of the port")
         route = self._route(impl, batch_map)
         tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
                                  dtype=torch.int64).to(self.device)
         x_span = embed_span(self.params["embed"], tokens)
+        dp = self.params["diora"]
         if route == "cuda":
-            dp = self.params["diora"]
             h0 = leaf_transform(self.cfg, dp, x_span)
             _, bp, _ = inside_cky.fused_inside_cky(
                 dp, h0, norm=self.cfg.normalize,
@@ -132,7 +417,6 @@ class Trainer:
         else:
             # padded buckets need no inside mask: inside values of valid
             # cells depend only on valid cells; lengths steer the decode
-            bp = diora_forward(self.cfg, self.params, x_span,
-                               with_cky=True, outside=False).cky_bp
+            bp = diora_forward(self.cfg, self.params, x_span, train=False,
+                               with_cky=True, outside=False).chart.cky_bp
         return {"cky_bp": bp.cpu().numpy(), "parse_impl": route}, {}
-

@@ -87,3 +87,82 @@ def test_bilinear_bf16_matches_jax(data):
                          compute_dtype=torch.bfloat16)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=1e-2)
+
+
+def test_region_attention_matches_jax(data):
+    """f32 context and its gradients, per-example diagonal, temperature."""
+    import jax
+
+    rs = np.random.RandomState(3)
+    h = data["a"]
+    obj = rs.randn(3, 4, D).astype(np.float32)
+
+    def jf(h, obj):
+        return jcore.region_attention(h, obj, temp=0.7)
+
+    want = jf(h, obj)
+    th = torch.from_numpy(h).requires_grad_()
+    tobj = torch.from_numpy(obj).requires_grad_()
+    got = tcore.region_attention(th, tobj, temp=0.7)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL)
+    w = rs.randn(*h.shape).astype(np.float32)
+    gh, gobj = jax.grad(lambda a, b: jnp.sum(jf(a, b) * w),
+                        argnums=(0, 1))(h, obj)
+    torch.sum(got * torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(_np(th.grad), _np(gh), atol=ATOL)
+    np.testing.assert_allclose(_np(tobj.grad), _np(gobj), atol=ATOL)
+
+
+def test_region_attention_dropout_uses_the_generator():
+    """Train-mode dropout draws from the caller's generator: the same seed
+    gives the same context, kept probabilities are scaled by 1/(1-p), and
+    eval mode or p=0 leave the context deterministic."""
+    rs = np.random.RandomState(4)
+    h = torch.from_numpy(rs.randn(2, 5, D).astype(np.float32))
+    obj = torch.from_numpy(rs.randn(2, 6, D).astype(np.float32))
+
+    def run(seed, **kw):
+        return tcore.region_attention(
+            h, obj, dropout=0.5,
+            generator=torch.Generator().manual_seed(seed), **kw)
+
+    assert torch.equal(run(0, train=True), run(0, train=True))
+    assert not torch.equal(run(0, train=True), run(1, train=True))
+    full = tcore.region_attention(h, obj)
+    assert torch.equal(run(0, train=False), full)
+    # the expectation over masks is the undropped context
+    mean = torch.stack([run(s, train=True) for s in range(1000)]).mean(0)
+    assert (mean - full).norm() / full.norm() < 0.1
+    with pytest.raises(ValueError, match="Generator"):
+        tcore.region_attention(h, obj, dropout=0.5, train=True)
+
+
+@pytest.mark.parametrize("pattern,xs,ys", [
+    ("blnd,bln->bld", (2, 3, 4, D), (2, 3, 4)),
+    ("bld,brd->blr", (2, 3, D), (2, 5, D)),
+    ("...md,...md->...m", (2, 3, D), (2, 3, D)),
+])
+def test_lowp_einsum_bf16_matches_jax(pattern, xs, ys):
+    """bf16 operands, f32 accumulation, each cotangent in its operand's
+    dtype (a bf16 x and an f32 y), against JAX's ``lowp_einsum``."""
+    import jax
+
+    rs = np.random.RandomState(5)
+    x = rs.randn(*xs).astype(np.float32)
+    y = rs.randn(*ys).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = jcore.lowp_einsum(pattern, xb, y, jnp.bfloat16, jnp.float32)
+    g = rs.randn(*want.shape).astype(np.float32)
+    gx, gy = jax.grad(lambda a, b: jnp.sum(jcore.lowp_einsum(
+        pattern, a, b, jnp.bfloat16, jnp.float32) * g), argnums=(0, 1))(xb, y)
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    ty = torch.from_numpy(y).requires_grad_()
+    got = tcore.lowp_einsum(pattern, tx, ty, torch.bfloat16, torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    torch.sum(got * torch.from_numpy(g)).backward()
+    assert tx.grad.dtype == torch.bfloat16 and ty.grad.dtype == torch.float32
+    # dx is rounded to bf16 once: one bf16 ulp of its magnitude
+    np.testing.assert_allclose(_np(tx.grad), _np(gx.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-2)
+    np.testing.assert_allclose(_np(ty.grad), _np(gy), rtol=1e-5, atol=1e-5)

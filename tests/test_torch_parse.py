@@ -100,8 +100,12 @@ def test_parse_routes_and_refusals(trainers):
                    {"outside": True}):
         with pytest.raises(NotImplementedError, match="slice"):
             ttr.parse(batch, **kwargs)
+    # a CLIORA model trains, but its parse is a later slice: parsing it
+    # text-only would silently ignore its images
+    cliora = Trainer.build(ModelConfig(size=D, input_size=E, use_obj=True),
+                           TrainConfig(), V, device="cpu")
     with pytest.raises(NotImplementedError, match="CLIORA"):
-        ModelConfig(use_obj=True)
+        cliora.parse(batch)
     with pytest.raises(ValueError):
         ModelConfig(parse_impl="pallas")
 
@@ -116,7 +120,8 @@ def test_embed_span_matches_jax(trainers):
     jtr, ttr = trainers
     tok = _batch(3, 7, seed=4)["sentences"]
     want, _ = jax_embed_forward(jtr.params["embed"], jnp.asarray(tok))
-    got = embed_span(ttr.params["embed"], torch.as_tensor(tok))
+    # the trainer's trainable parameters require grad, as torch's do
+    got = embed_span(ttr.params["embed"], torch.as_tensor(tok)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     full, _ = embed_forward(ttr.params["embed"], torch.as_tensor(tok))
     assert torch.equal(got, full)

@@ -1,0 +1,195 @@
+"""Span x region max: the port's plain versions and ``span_region_max``
+under every impl vs the JAX package's (``einsum``, ``chunked``, and the
+Pallas kernels in interpret mode, as tests/test_span_region.py runs
+them), the custom gradient vs JAX autodiff, the wrappers' CPU route, and
+-- on a machine with a CUDA card -- kernels K2-K4 vs their plain
+versions.
+
+JAX is imported inside the JAX tests only, so this file also runs on a
+machine with a card and no JAX:
+``python -m pytest --noconftest tests/test_torch_span_region.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cliora_tpu_torch.ops import span_region as sr
+
+A, C, M, R, D = 3, 5, 17, 7, 24
+ATOL = 1e-5
+
+
+def _data(seed=11):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(A, M, D).astype(np.float32),
+            rs.randn(C, R, D).astype(np.float32),
+            rs.randn(A, C, M).astype(np.float32))
+
+
+def _jax():
+    jax = pytest.importorskip("jax")
+    if jax.default_backend() != "cpu":
+        pytest.skip("the JAX parity tests hold the port to JAX on the CPU")
+    import cliora_tpu.ops.span_region as jsr
+    return jax, jsr
+
+
+@pytest.mark.parametrize("impl,jax_impl", [
+    ("einsum", "einsum"), ("chunked", "chunked"), ("cuda", "pallas")])
+def test_forward_matches_jax(impl, jax_impl):
+    jax, jsr = _jax()
+    span, obj, _ = _data()
+    want_mx, want_am = jsr._IMPLS[jax_impl](span, obj)
+    got = sr.span_region_max(torch.from_numpy(span), torch.from_numpy(obj),
+                             impl)
+    assert got.dtype == torch.float32 and got.shape == (A, C, M)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_mx), atol=ATOL)
+    mx, am = sr.span_region_fwd_plain(torch.from_numpy(span),
+                                      torch.from_numpy(obj))
+    assert am.dtype == torch.int32
+    np.testing.assert_array_equal(am.numpy(), np.asarray(want_am))
+    np.testing.assert_allclose(mx.numpy(), np.asarray(want_mx), atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", sr.IMPLS)
+def test_grads_match_jax_autodiff(impl):
+    """The argmax-routed gradient equals autodiff of max(einsum) off ties
+    (random inputs have none)."""
+    jax, _ = _jax()
+    import jax.numpy as jnp
+
+    span, obj, _ = _data(seed=3)
+
+    def ref_loss(s, o):
+        return jnp.sum(jnp.tanh(jnp.max(jnp.einsum("amd,crd->acmr", s, o),
+                                        -1)))
+
+    want = jax.grad(ref_loss, argnums=(0, 1))(span, obj)
+    ts = torch.from_numpy(span).requires_grad_()
+    to = torch.from_numpy(obj).requires_grad_()
+    torch.sum(torch.tanh(sr.span_region_max(ts, to, impl))).backward()
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(want[0]),
+                               atol=ATOL)
+    np.testing.assert_allclose(to.grad.numpy(), np.asarray(want[1]),
+                               atol=ATOL)
+
+
+def test_plain_backward_matches_jax_pallas_backward():
+    """K3 and K4's plain versions vs the JAX Pallas backward kernels on
+    the same ``g`` and argmax, at f32 (where the Pallas kernels' bf16
+    rounding of the weighted one-hot is absent)."""
+    _, jsr = _jax()
+    span, obj, g = _data(seed=5)
+    _, am = jsr._max_and_argmax_einsum(span, obj)
+    want_dspan, want_dobj = jsr._bwd_pallas(span, obj, am, g)
+    tam = torch.from_numpy(np.array(am))
+    dspan = sr.span_region_dspan_plain(torch.from_numpy(obj), tam,
+                                       torch.from_numpy(g), torch.float32)
+    dobj = sr.span_region_dobj_plain(torch.from_numpy(span), tam,
+                                      torch.from_numpy(g), R, torch.float32)
+    np.testing.assert_allclose(dspan.numpy(), np.asarray(want_dspan),
+                               atol=ATOL)
+    np.testing.assert_allclose(dobj.numpy(), np.asarray(want_dobj),
+                               atol=ATOL)
+
+
+def test_bf16_span_keeps_dtypes():
+    """bf16 span: the forward contracts bf16 operands into f32 scores,
+    ``dspan`` comes back bf16 and ``dobj`` in obj's f32."""
+    span, obj, _ = _data()
+    ts = torch.from_numpy(span).to(torch.bfloat16).requires_grad_()
+    to = torch.from_numpy(obj).requires_grad_()
+    out = sr.span_region_max(ts, to, "chunked")
+    want, _ = sr.span_region_fwd_plain(
+        ts.detach().float(), to.detach().to(torch.bfloat16).float())
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, want, atol=ATOL, rtol=0)
+    out.sum().backward()
+    assert ts.grad.dtype == torch.bfloat16 and to.grad.dtype == torch.float32
+
+
+def test_wrappers_cpu_route_is_plain():
+    """On CPU tensors the wrappers run the plain versions and launch
+    nothing."""
+    span, obj, g = (torch.from_numpy(x) for x in _data())
+    before = dict(sr.launches)
+    mx, am = sr.span_region_fwd(span, obj)
+    pmx, pam = sr.span_region_fwd_plain(span, obj)
+    assert torch.equal(mx, pmx) and torch.equal(am, pam)
+    assert torch.equal(sr.span_region_dspan(obj, am, g, torch.float32),
+                       sr.span_region_dspan_plain(obj, am, g, torch.float32))
+    assert torch.equal(sr.span_region_dobj(span, am, g, R, torch.float32),
+                       sr.span_region_dobj_plain(span, am, g, R,
+                                                 torch.float32))
+    sr.span_region_max(span.requires_grad_(), obj, "cuda").sum().backward()
+    assert sr.launches == before == {k: 0 for k in sr.launches}
+
+
+def test_supports_and_segments():
+    assert sr.supports(400, 36) and sr.supports(24, 7)
+    assert not sr.supports(402, 36)          # 16-byte bf16 row loads
+    assert not sr.supports(400, 145)         # wider than a column tile
+    assert not sr.supports(1032, 36)         # K3's register accumulators
+    assert sr.supports(400, 113) and not sr.supports(400, 114)  # K4 smem
+    assert sr.dobj_segments(128 * 210, 128, 400) == 9
+    assert sr.dobj_segments(A * M, C, D) == 1
+    with pytest.raises(ValueError):
+        sr.span_region_max(torch.zeros(1, 1, 8), torch.zeros(1, 1, 8),
+                           "pallas")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("a,m,c,r,d", [
+    (3, 17, 5, 7, 24), (37, 13, 37, 36, 400), (2, 1, 1, 36, 64),
+    (9, 5, 130, 3, 16)])
+def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
+    """K2: f32 max within 1e-4 of the plain version (scaled to the
+    scores' magnitude), argmax equal wherever the top-2 gap exceeds that;
+    bf16 argmax agreement >= 0.99.  K3/K4 at 1e-4 (f32) of the plain
+    versions and bitwise-equal over two calls.  obj all zero: argmax 0."""
+    gen = torch.Generator(device=cuda).manual_seed(a * m + c)
+    span = torch.randn(a, m, d, generator=gen, device=cuda)
+    obj = torch.randn(c, r, d, generator=gen, device=cuda)
+    g = torch.randn(a, c, m, generator=gen, device=cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        s = span.to(dt)
+        before = dict(sr.launches)
+        mx, am = sr.span_region_fwd(s, obj)
+        torch.cuda.synchronize()
+        assert sr.launches["span_region_fwd"] == before["span_region_fwd"] + 1
+        pmx, pam = sr.span_region_fwd_plain(s, obj)
+        scale = max(1.0, pmx.abs().max().item())
+        if dt == torch.float32:
+            torch.testing.assert_close(mx, pmx, atol=1e-4 * scale, rtol=0)
+            scores = torch.einsum("amd,crd->acmr", s, obj)
+            top2 = torch.topk(scores, min(2, r), dim=-1).values
+            gap = (top2[..., 0] - top2[..., -1]) > 1e-4 * scale
+            assert torch.equal(am[gap], pam[gap])
+        else:
+            assert (am == pam).float().mean().item() >= 0.99
+            assert (mx - pmx).abs().max().item() <= 1e-3 * scale
+        dspan = sr.span_region_dspan(obj, am, g, dt)
+        dobj = sr.span_region_dobj(s, am, g, r, torch.float32)
+        pdspan = sr.span_region_dspan_plain(obj, am, g, dt)
+        pdobj = sr.span_region_dobj_plain(s, am, g, r, torch.float32)
+        dscale = max(1.0, pdspan.abs().max().item())
+        tol = 1e-4 if dt == torch.float32 else 1e-2
+        assert (dspan.float() - pdspan.float()).abs().max().item() \
+            <= tol * dscale
+        assert (dobj - pdobj).abs().max().item() \
+            <= 1e-4 * max(1.0, pdobj.abs().max().item())
+        assert torch.equal(dspan, sr.span_region_dspan(obj, am, g, dt))
+        assert torch.equal(dobj, sr.span_region_dobj(s, am, g, r,
+                                                     torch.float32))
+        zmx, zam = sr.span_region_fwd(s, torch.zeros_like(obj))
+        assert torch.equal(zam, torch.zeros_like(zam))
+        assert torch.equal(zmx, torch.zeros_like(zmx))
