@@ -18,7 +18,14 @@ full width with random weights from a seed:
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
-and times each kernel against its plain version and its bound.
+and times each kernel against its plain version and its bound.  K2-K4
+are checked at the step's calls (VG f32, contrastive bf16 and f32), an
+odd shape and the edges of the Hopper tiles, and timed at the three
+calls; the two kernels redesigned for Hopper (K2 on wgmma + TMA, K4 as a
+one-hot GEMM on the tensor cores) are also timed against a
+``torch.matmul`` of the same bf16 operands (the product alone), K4 on
+the all-ties argmax of init, and K4's f32 route against the bf16 GEMM on
+a two-term split of the span.
 
 Prints one JSON object per phase, then the ``kernels`` summary, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -112,9 +119,9 @@ KERNELS = {
 DEVICE_FUNCS = {
     "inside_cky": re.compile(
         r"::(prep_weights|init_leaves|project|fc0|fc1|combine)<"),
-    "span_region_fwd": re.compile(r"::k2_fwd<"),
+    "span_region_fwd": re.compile(r"::k2_fwd_(bf16<|f32\()"),
     "span_region_dspan": re.compile(r"::k3_dspan<"),
-    "span_region_dobj": re.compile(r"::k4_(dobj<|reduce\()"),
+    "span_region_dobj": re.compile(r"::k4_(dobj_gemm\(|dobj_f32<|reduce\()"),
 }
 SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
 
@@ -241,11 +248,12 @@ def kernel_vs_plain(dp, h0, dtype):
     }
 
 
-def profile_kernels(fn):
-    """Device ms and launches by CUDA kernel name over one call of ``fn``;
-    empty when the profiler sees no device activity.  A trace can miss
-    the first kernel launched after it starts, so a short spin kernel
-    (``torch.cuda._sleep``) runs first and is left out of the result."""
+def profile_kernels(fn, reps=1):
+    """Device ms and launches by CUDA kernel name per call of ``fn``, over
+    ``reps`` calls; empty when the profiler sees no device activity.  A
+    trace can miss the first kernel launched after it starts, so a short
+    spin kernel (``torch.cuda._sleep``) runs first and is left out of the
+    result, and a count per call is rounded from several calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -253,15 +261,18 @@ def profile_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     by_name = {}
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and "spin_kernel" not in evt.name):
             rec = by_name.setdefault(evt.name[:60], {"ms": 0.0, "count": 0})
-            rec["ms"] += evt.device_time_total / 1e3
+            rec["ms"] += evt.device_time_total / 1e3 / reps
             rec["count"] += 1
+    for rec in by_name.values():
+        rec["count"] = round(rec["count"] / reps)
     return by_name
 
 
@@ -400,7 +411,7 @@ def parse_path(rs):
 
             p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                               cuda_ms(plain))
-            by_kernel = profile_kernels(kern)
+            by_kernel = profile_kernels(kern, reps=5)
             rec = {"ms": statistics.median(k1 + k2),
                    "plain_ms": statistics.median(p1 + p2),
                    **bound(B, N, D, dtype), "library_ms": None,
@@ -493,6 +504,10 @@ def span_region_vs_plain(span, obj, g):
     zmx, zam = span_region.span_region_fwd(span, torch.zeros_like(obj))
     rec["ties_argmax_zero"] = bool(torch.equal(zam, torch.zeros_like(zam))
                                    and torch.equal(zmx, torch.zeros_like(zmx)))
+    zdobj = span_region.span_region_dobj(span, zam, torch.zeros_like(g), Rr,
+                                         torch.float32)
+    rec["zero_g_dobj_zero"] = bool(torch.equal(zdobj,
+                                               torch.zeros_like(zdobj)))
     return rec
 
 
@@ -517,6 +532,7 @@ def check_span_region(rec, what, bf16):
     check(rec["dspan_bitwise_repeat"] and rec["dobj_bitwise_repeat"],
           f"{what}: K3/K4 not bitwise repeatable")
     check(rec["ties_argmax_zero"], f"{what}: all-ties argmax is not 0")
+    check(rec["zero_g_dobj_zero"], f"{what}: g all zero, dobj not zero")
 
 
 def train_configs(dtype, attn_impl="cuda", attn_dropout=0.1, **model_kw):
@@ -709,16 +725,111 @@ def span_region_timing(span, obj, g, am):
     for name, (kern, plain) in calls.items():
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                           cuda_ms(plain))
-        by_kernel = profile_kernels(kern)
+        by_kernel = profile_kernels(kern, reps=5)
         out[name] = {"ms": statistics.median(k1 + k2),
                      "plain_ms": statistics.median(p1 + p2),
                      **sr_bound(name, span, obj), "library_ms": None,
                      "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
-                     "cuda_launches_per_call": own_launches(by_kernel, name)}
+                     "cuda_launches_per_call": own_launches(by_kernel, name),
+                     "profiled_device_ms": by_kernel}
         emit({"phase": "timing", "name": name, "dtype": str(dt),
               "span": list(span.shape), "obj": list(obj.shape),
               **out[name]})
     return out
+
+
+def redesign_timing(span, obj, g):
+    """What the kernels redesigned for Hopper (K2, K4) are held to, at the
+    bf16 contrastive call: each one's ``gemm_yardstick_ms``, a
+    ``torch.matmul`` of the same bf16 operands timed for the product alone
+    (K2: span x obj^T, no max; K4: a dense bf16 W, built outside the timed
+    region, x span, one g term); K4 on the all-ties argmax of a zero obj
+    against random argmax, in turns; K4's dense-formulation bound."""
+    A, M, Dd = span.shape
+    C, Rr, _ = obj.shape
+    dev = span.device
+    s2 = span.reshape(A * M, Dd)
+    o2 = obj.to(torch.bfloat16).reshape(C * Rr, Dd)
+    _, am = span_region.span_region_fwd(span, obj)
+    _, am0 = span_region.span_region_fwd(span, torch.zeros_like(obj))
+    w = torch.zeros(C * Rr, A * M, dtype=torch.bfloat16, device=dev)
+    row = torch.arange(C, device=dev)[None, :, None] * Rr + am.long()
+    col = (torch.arange(A, device=dev)[:, None, None] * M
+           + torch.arange(M, device=dev)[None, None, :]).expand(A, C, M)
+    w[row.reshape(-1), col.reshape(-1)] = g.reshape(-1).to(torch.bfloat16)
+    k2_yard = cuda_ms(lambda: torch.matmul(s2, o2.t()))
+    k4_yard = cuda_ms(lambda: torch.matmul(w, s2))
+    del w
+
+    def k4(a):
+        return lambda: span_region.span_region_dobj(span, a, g, Rr,
+                                                    torch.float32)
+
+    r1, t1, t2, r2 = (cuda_ms(k4(am)), cuda_ms(k4(am0)), cuda_ms(k4(am0)),
+                      cuda_ms(k4(am)))
+    rand_ms, ties_ms = statistics.median(r1 + r2), statistics.median(t1 + t2)
+    dense = 2 * (2 * C * Rr * A * M * Dd)     # two bf16 terms of g
+    out = {
+        "span_region_fwd": {
+            "gemm_yardstick_ms": statistics.median(k2_yard),
+            "gemm_yardstick": "torch.matmul(span (A*M, D) bf16, obj "
+                              "(C*R, D) bf16 transposed): the product "
+                              "alone, no max"},
+        "span_region_dobj": {
+            "gemm_yardstick_ms": statistics.median(k4_yard),
+            "gemm_yardstick": "torch.matmul(dense W (C*R, A*M) bf16 built "
+                              "outside the timed region, span (A*M, D) "
+                              "bf16): the product alone, one g term",
+            "random_argmax_ms": rand_ms, "all_ties_ms": ties_ms,
+            "all_ties_over_random": ties_ms / rand_ms,
+            "g_terms": 2, "flop_dense_formulation": dense,
+            "bound_ms_dense_formulation": dense / PEAK_FLOPS["bfloat16"]
+            * 1e3},
+    }
+    for name, rec in out.items():
+        emit({"phase": "redesign_timing", "name": name, **rec})
+    return out
+
+
+def f32_split_timing(span, obj, g):
+    """K4 on f32 spans: the SIMT kernel against the split formulation --
+    span = bf16 hi + bf16 lo, each through the bf16 one-hot GEMM, summed --
+    on the same inputs, in turns, with each one's error against the plain
+    version: elementwise (as a fraction of the largest magnitude), and of
+    the sum over all C*R region rows (as a fraction of that sum's largest
+    magnitude), the reduction a bias shared by every region's embedding
+    takes of dobj."""
+    Rr = obj.shape[1]
+    _, am = span_region.span_region_fwd(span, obj)
+
+    def simt():
+        return span_region.span_region_dobj(span, am, g, Rr, torch.float32)
+
+    def split():
+        hi = span.to(torch.bfloat16)
+        lo = (span - hi.float()).to(torch.bfloat16)
+        return (span_region.span_region_dobj(hi, am, g, Rr, torch.float32)
+                + span_region.span_region_dobj(lo, am, g, Rr, torch.float32))
+
+    want = span_region.span_region_dobj_plain(span, am, g, Rr, torch.float32)
+    scale = max(1.0, want.abs().max().item())
+    want_sum = want.sum((0, 1))
+    sum_scale = want_sum.abs().max().item()
+    got = {"split": split(), "simt": simt()}
+    err = {k: (v - want).abs().max().item() for k, v in got.items()}
+    sum_err = {k: (v.sum((0, 1)) - want_sum).abs().max().item() / sum_scale
+               for k, v in got.items()}
+    s1, k1, k2, s2 = cuda_ms(simt), cuda_ms(split), cuda_ms(split), \
+        cuda_ms(simt)
+    rec = {"ms": statistics.median(k1 + k2),
+           "simt_ms": statistics.median(s1 + s2),
+           "max_abs_err": err["split"], "simt_max_abs_err": err["simt"],
+           "scale": scale, "within_rtol": err["split"] <= SR_F32_RTOL * scale,
+           "region_sum_rel_err": sum_err["split"],
+           "simt_region_sum_rel_err": sum_err["simt"]}
+    emit({"phase": "f32_split_timing", "name": "span_region_dobj",
+          "span": list(span.shape), **rec})
+    return rec
 
 
 def train_path(rs):
@@ -732,23 +843,32 @@ def train_path(rs):
         return torch.randn(*shape, generator=gen, device=dev)
 
     # the two calls of a step: VG (x_word x obj_word, f32) and contrastive
-    # ((inside_h + outside_h) x obj_span, bf16 charts); an odd shape
-    shapes = {"vg": (B, N, B, "float32"),
-              "contrastive": (B, ncells(N), B, "bfloat16"),
-              "odd": (37, 13, 37, None)}
+    # ((inside_h + outside_h) x obj_span, bf16 charts in the bf16 step, f32
+    # in the f32 step); an odd shape; the edges of the Hopper tiles: R=144
+    # (one image a K2 column tile), D=16 (one k tile; K4 boxes outside D),
+    # a D tail inside a 64-deep k tile, C*R not a multiple of 128 with many
+    # K4 row segments
+    shapes = {"vg": (B, N, B, R, D, "float32"),
+              "contrastive": (B, ncells(N), B, R, D, "bfloat16"),
+              "contrastive_f32": (B, ncells(N), B, R, D, "float32"),
+              "odd": (37, 13, 37, R, D, None),
+              "edge_r144": (5, 7, 3, 144, D, None),
+              "edge_d16": (4, 9, 6, R, 16, None),
+              "edge_ktail": (3, 50, 5, R, 72, None),
+              "edge_segments": (64, 100, 16, R, D, None)}
     checked, inputs = {}, {}
-    for tag, (a, m, c, only) in shapes.items():
+    for tag, (a, m, c, r, d, only) in shapes.items():
         for dtype in ((only,) if only else ("float32", "bfloat16")):
             tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-            span = randn(a, m, D).to(tdt)
-            obj, g = randn(c, R, D), randn(a, c, m)
+            span = randn(a, m, d).to(tdt)
+            obj, g = randn(c, r, d), randn(a, c, m)
             rec = span_region_vs_plain(span, obj, g)
             emit({"phase": "kernel", "name": "span_region", "case": tag,
-                  "dtype": dtype, "span": [a, m, D], "obj": [c, R, D], **rec})
+                  "dtype": dtype, "span": [a, m, d], "obj": [c, r, d], **rec})
             check_span_region(rec, f"span_region {tag} {dtype}",
                               dtype == "bfloat16")
             checked[(tag, dtype)] = rec
-            if tag != "odd":
+            if only:
                 inputs[tag] = (span, obj, g)
     torch.cuda.empty_cache()
 
@@ -770,17 +890,20 @@ def train_path(rs):
 
     # -- timing at the main path's shapes
     timing = {}
-    for tag in ("contrastive", "vg"):
+    for tag in ("contrastive", "contrastive_f32", "vg"):
         span, obj, g = inputs[tag]
         _, am = span_region.span_region_fwd(span, obj)
         timing[tag] = span_region_timing(span, obj, g, am)
+    redesign = redesign_timing(*inputs["contrastive"])
+    split = f32_split_timing(*inputs["contrastive_f32"])
+    err_keys = {"span_region_fwd": "fwd_max_abs_err",
+                "span_region_dspan": "dspan_max_abs_err",
+                "span_region_dobj": "dobj_max_abs_err"}
     entries = []
     for name in SR_KERNELS:
-        main, vg = timing["contrastive"][name], timing["vg"][name]
-        err_key = {"span_region_fwd": "fwd_max_abs_err",
-                   "span_region_dspan": "dspan_max_abs_err",
-                   "span_region_dobj": "dobj_max_abs_err"}[name]
-        entries.append({
+        main = timing["contrastive"][name]
+        err_key = err_keys[name]
+        entry = {
             "name": name, **KERNELS[name],
             "launches": path_launches[name],
             "max_abs_err": checked[("contrastive", "bfloat16")][err_key],
@@ -792,11 +915,17 @@ def train_path(rs):
             "launches_per_step_profiled": {
                 dt: train[dt]["launches_per_step_profiled"][name]
                 for dt in train},
-            "vg_f32": {k: vg[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by")}
-            | {"max_abs_err": checked[("vg", "float32")][err_key],
-               "span": [B, N, D]},
-        })
+        }
+        for tag in ("contrastive_f32", "vg"):
+            t = timing[tag][name]
+            entry[tag] = ({k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")}
+                          | {"max_abs_err": checked[(tag, "float32")][err_key],
+                             "span": list(inputs[tag][0].shape)})
+        entry.update(redesign.get(name, {}))
+        if name == "span_region_dobj":
+            entry["contrastive_f32"]["split_bf16"] = split
+        entries.append(entry)
     return entries
 
 

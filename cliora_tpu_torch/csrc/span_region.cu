@@ -14,24 +14,29 @@
 //
 // K2.  A GEMM of the A*M span rows against the C*R region rows, both along
 // D, whose epilogue takes each image's max/argmax over its R regions: the
-// (A, C, M, R) scores never leave the block.  What bounds it: operations
+// (A, C, M, R) scores never leave the chip.  What bounds it: operations
 // (2 A M C R D FLOP; at the contrastive call A=C=128, M=210, R=36, D=400
-// that is 9.9e10 FLOP against 52.7 MB of compulsory traffic).
-//  * Column tiles hold whole images: a block owns BM=64 span rows and the
-//    BN=144 columns of CI = BN / R images (R=36: 4 images, no padding;
-//    other R leave BN - CI*R zero columns).  R=36 is not a tile width, but
-//    144 = 4 * 36 = 9 * 16 is both a whole number of images and of WMMA
-//    tiles.
-//  * f32 spans (the VG call): fp32 FMAs on the CUDA cores, no TF32, each
-//    thread an 8 x 9 block of scores, 16-deep shared-memory stages with the
-//    next stage's global loads in registers.
+// that is 9.9e10 FLOP against 52.7 MB of compulsory traffic).  Column
+// tiles hold whole images: BN=144 columns are CI = BN / R images (R=36: 4
+// images, no padding; other R leave BN - CI*R columns that the epilogue
+// ignores).
 //  * bf16 spans (the contrastive call; obj is cast to bf16 by the
-//    wrapper): the tensor cores through WMMA 16x16x16 with f32
-//    accumulation, each of 4 warps a 16 x 144 strip, 32-deep stages.
-//  * Epilogue: the f32 score tile goes to shared memory, and one thread per
-//    (row, image) scans that image's R scores in order, keeping the first
-//    max.  At init the image encoder is zero, every score ties at 0, and
-//    the argmax is 0, as in the JAX package.
+//    wrapper): k2_fwd_bf16.  A block owns 128 span rows x 144 columns.
+//    One producer warp keeps a 3-stage ring of 64-deep tiles filled by TMA
+//    (128-byte swizzle, the D tail zero-filled); two consumer warpgroups
+//    each run wgmma m64n144k16 on 64 of the rows, f32 accumulators in
+//    registers.  Epilogue from the registers: a quad of threads holds one
+//    row's 144 columns; each thread takes a first max per image over its
+//    columns in order, and a quad shuffle keeps the larger value, the
+//    lower region on a tie -- the strict > over increasing r of the plain
+//    version.  No score tile goes through shared memory.  Two blocks fit
+//    an SM, so one block's epilogue overlaps the other's loads.
+//  * f32 spans (the VG call): k2_fwd_f32, fp32 FMAs on the CUDA cores, no
+//    TF32, each thread an 8 x 9 block of a 64-row tile, 16-deep
+//    shared-memory stages with the next stage's loads in registers; its
+//    scores go to shared memory and one thread per (row, image) scans them.
+//  At init the image encoder is zero, every score ties at 0, and the
+//  argmax is 0, as in the JAX package.
 //
 // K3.  The TPU multiplied a g-weighted one-hot (tile x C*R) by obj on the
 // MXU.  Here each warp owns one span row (a, m) and gathers the argmax row
@@ -41,24 +46,40 @@
 // 5.5 GB at the contrastive call, read through L1/L2: obj itself is 7.4 MB),
 // not the 2 A M C D FLOP.
 //
-// K4.  A scatter-add with no float atomics, so two calls on the same inputs
-// give the same bits (the JAX package promises bitwise-exact resume).  A
-// block owns G=4 images and a 128-wide slice of D, keeps their (G, R, 128)
-// f32 accumulator in shared memory (74 KB at R=36), and walks a fixed
-// segment of span rows in order: warp w handles image w, lane l columns
-// 4l..4l+3, so every accumulator entry has one owner thread and no two
-// threads race.  Walking all rows once per image would read the span C
-// times; a group of G images reads it C/G times (from L2: 21.5 MB at the
-// bf16 contrastive call).  The rows are cut into a shape-determined number
-// of segments so the card is full; a second pass adds the segments'
-// partial sums in segment order.  What bounds it: instructions per
-// (row, image) update -- a load, a shared-memory read-modify-write -- so
-// each moves 4 columns at once; not the FLOP, nor the bytes.
+// K4.  dobj = W . span as a GEMM over the A*M span rows, with
+// W[c R + r, a M + m] = g[a, c, m] [am[a, c, m] = r] -- the TPU kernel's
+// one-hot matmul.  No float atomics, so two calls on the same inputs give
+// the same bits (the JAX package promises bitwise-exact resume): the rows
+// are cut into a shape-determined number of fixed segments, each block
+// writes its segment's partial sums, and k4_reduce adds them in segment
+// order.
+//  * bf16 spans (the contrastive call): k4_dobj_gemm, on the tensor cores.
+//    A block owns 128 region rows (two consumer warpgroups of 64) x 200
+//    columns of D.  A producer warp brings each 64-row k tile of span by
+//    TMA (MN-major, four 64-wide boxes) and stages the argmax and g of the
+//    tile's rows for the block's images (a few KB) in a 4-stage ring.
+//    Each consumer thread builds its own wgmma A fragment of W in
+//    registers from those, so W never reaches memory, and runs wgmma
+//    m64n200k16 with B = the span tile.  g is split into two bf16 terms,
+//    g_hi = bf16(g), g_lo = bf16(g - g_hi): each term times a bf16 span
+//    value is exact in f32, sums are f32, and what is left out of g is
+//    at most 2^-16 of it.  The work is the dense product, 2 terms x 2 C R A
+//    M D FLOP, whatever the argmax: all rows on region 0 at init cost what
+//    random ones cost.  What bounds it: the tensor-core operations (0.10
+//    ms a term at the contrastive call), not the bytes.
+//  * f32 spans (the VG call): k4_dobj_f32, a scatter with one owner thread
+//    per accumulator entry.  A block owns G images (4, or 2 where R is
+//    large) and a 128-wide slice of D, keeps their (G, R, 128) f32
+//    accumulator in shared memory, and walks a row segment in order: warp
+//    w handles image w, lane l columns 4l..4l+3.  What bounds it:
+//    instructions per (row, image) update -- a load, a shared-memory
+//    read-modify-write.
 //
-// g stays f32 in K3 and K4 (the Pallas backward rounds the weighted
-// one-hot to bf16 before its matmuls; the port's plain backward, and the
-// JAX package's einsum/chunked backward, do not), obj is read in f32 by K3,
-// span in its own dtype by K4.
+// g stays f32 in K3 and the f32 K4 (the Pallas backward rounds the
+// weighted one-hot to bf16 before its matmuls; the port's plain backward,
+// and the JAX package's einsum/chunked backward, do not), and enters the
+// bf16 K4 as two bf16 terms whose sum is g within 2^-16; obj is read in
+// f32 by K3, span in its own dtype by K4.
 //
 // Plain C interface, loaded with ctypes (ops/span_region.py).  The caller
 // allocates every buffer; kernels run on the caller's stream; each launch
@@ -66,26 +87,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include <type_traits>
+#include <climits>
+
+#include "sm90.cuh"
 
 namespace {
 
-__device__ inline float load_f(const float* p) { return *p; }
-__device__ inline float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// four consecutive values (16-byte / 8-byte aligned) as floats
+// four consecutive floats (16-byte aligned)
 __device__ inline float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ inline float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ inline float4 fma4(float a, float4 x, float4 acc) {
@@ -101,32 +112,20 @@ template <> __device__ inline __nv_bfloat16 store_t<__nv_bfloat16>(float x) {
 
 // ---------------------------------------------------------------- K2 ----
 
-constexpr int BM = 64;           // span rows per block
 constexpr int BN = 144;          // region columns per block (whole images)
-constexpr int NT = 128;          // threads per block
-constexpr int CS = BN + 4;       // f32 score tile row stride
 
-// f32 mainloop: 8 x 9 scores a thread, 8 row groups x 16 column groups
+// f32: 64 span rows a block, 128 threads of 8 x 9 scores, 16-deep stages
+constexpr int BM = 64;
+constexpr int NT = 128;
+constexpr int CS = BN + 4;       // f32 score tile row stride
 constexpr int FBK = 16;
 constexpr int FTM = 8, FTN = 9;
 constexpr int FA = BM * FBK / 4 / NT;                 // A float4s a thread
 constexpr int FB = (BN * FBK / 4 + NT - 1) / NT;      // B float4s a thread
 static_assert((BM / FTM) * (BN / FTN) == NT, "f32 thread tile");
-
-// bf16 mainloop: 4 warps, each a 16 x 144 strip of 9 WMMA tiles
-constexpr int HBK = 32;
-constexpr int HS = HBK + 8;                           // bf16 tile row stride
-constexpr int HA = BM * HBK / 8 / NT;                 // A 16-byte loads a thread
-constexpr int HB = (BN * HBK / 8 + NT - 1) / NT;      // B 16-byte loads a thread
-static_assert(BM == 16 * (NT / 32) && BN % 16 == 0, "bf16 warp tile");
-
 constexpr int kSmemF32 = (FBK * BM + FBK * BN) * 4;
-constexpr int kSmemBf16 = (BM * HS + BN * HS) * 2;
 constexpr int kSmemScores = BM * CS * 4;
-constexpr int kSmemK2 =
-    kSmemScores > kSmemF32
-        ? (kSmemScores > kSmemBf16 ? kSmemScores : kSmemBf16)
-        : (kSmemF32 > kSmemBf16 ? kSmemF32 : kSmemBf16);
+constexpr int kSmemK2 = kSmemScores > kSmemF32 ? kSmemScores : kSmemF32;
 
 // The block's operands: span rows [row0, row0 + BM) of the flat (A*M, D)
 // span, region rows [col0, col0 + ncols) of the flat (C*R, D) obj; rows
@@ -227,89 +226,11 @@ __device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
     for (int j = 0; j < FTN; ++j) Cs[ty * FTM + i][tx * FTN + j] = acc[i][j];
 }
 
-// The same product on the tensor cores: bf16 operands, f32 accumulation.
-__device__ __forceinline__ void mainloop_bf16(const __nv_bfloat16* __restrict__ span,
-                                              const __nv_bfloat16* __restrict__ obj,
-                                              const Tile& t, unsigned char* smem) {
-  using namespace nvcuda;
-  auto As = reinterpret_cast<__nv_bfloat16 (*)[HS]>(smem);               // [row][k]
-  auto Bs = reinterpret_cast<__nv_bfloat16 (*)[HS]>(smem + BM * HS * 2);  // [col][k]
-  const int warp = threadIdx.x / 32;
-  const int r0 = warp * 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(c[j], 0.f);
-
-  uint4 ra[HA], rb[HB];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < HA; ++j) {
-      const int idx = threadIdx.x + NT * j;
-      const int r = idx / 4, k = k0 + (idx % 4) * 8;
-      const long long row = t.row0 + r;
-      ra[j] = (row < t.rows && k < t.D)
-                  ? *reinterpret_cast<const uint4*>(span + row * t.D + k)
-                  : zero;
-    }
-#pragma unroll
-    for (int j = 0; j < HB; ++j) {
-      const int idx = threadIdx.x + NT * j;
-      const int cc = idx / 4, k = k0 + (idx % 4) * 8;
-      rb[j] = (idx < BN * HBK / 8 && cc < t.ncols && k < t.D)
-                  ? *reinterpret_cast<const uint4*>(obj + (t.col0 + cc) * t.D + k)
-                  : zero;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int j = 0; j < HA; ++j) {
-      const int idx = threadIdx.x + NT * j;
-      *reinterpret_cast<uint4*>(&As[idx / 4][(idx % 4) * 8]) = ra[j];
-    }
-#pragma unroll
-    for (int j = 0; j < HB; ++j) {
-      const int idx = threadIdx.x + NT * j;
-      if (idx < BN * HBK / 8)
-        *reinterpret_cast<uint4*>(&Bs[idx / 4][(idx % 4) * 8]) = rb[j];
-    }
-  };
-
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int k0 = 0; k0 < t.D; k0 += HBK) {
-    const bool more = k0 + HBK < t.D;
-    if (more) fetch(k0 + HBK);
-#pragma unroll
-    for (int kk = 0; kk < HBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, &As[r0][kk], HS);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, &Bs[16 * j][kk], HS);
-        wmma::mma_sync(c[j], a, b, c[j]);
-      }
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-  auto Cs = reinterpret_cast<float (*)[CS]>(smem);
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(&Cs[r0][16 * j], c[j], CS, wmma::mem_row_major);
-}
-
 // Grid: (column tiles of CI images, row tiles of BM rows).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-k2_fwd(const T* __restrict__ span, const T* __restrict__ obj,
-       float* __restrict__ mx, int* __restrict__ am, int A, int M, int C,
-       int R, int D) {
+k2_fwd_f32(const float* __restrict__ span, const float* __restrict__ obj,
+           float* __restrict__ mx, int* __restrict__ am, int A, int M, int C,
+           int R, int D) {
   __shared__ __align__(128) unsigned char smem[kSmemK2];
   const int CI = BN / R;                 // images per column tile
   const int c0 = blockIdx.x * CI;
@@ -320,10 +241,7 @@ k2_fwd(const T* __restrict__ span, const T* __restrict__ obj,
   t.col0 = (long long)c0 * R;
   t.ncols = nimg * R;
   t.D = D;
-  if constexpr (std::is_same_v<T, float>)
-    mainloop_f32(span, obj, t, smem);
-  else
-    mainloop_bf16(span, obj, t, smem);
+  mainloop_f32(span, obj, t, smem);
   __syncthreads();
 
   // segmented max/argmax: one thread per (row, image), regions in order
@@ -344,6 +262,193 @@ k2_fwd(const T* __restrict__ span, const T* __restrict__ obj,
     const long long o = (a * C + c0 + ci) * M + m;
     mx[o] = best;
     am[o] = arg;
+  }
+}
+
+// bf16: 256 span rows a block (two consumer warpgroups of 128, each two
+// wgmma row tiles of 64) and one producer warp; a ring of 64-deep stages,
+// each the span tile (256 x 64) and the obj tile (144 x 64), 128-byte rows
+// swizzled by TMA.  256 x 144 tiles read span and obj from L2 1.07 GB at
+// the contrastive call (128 x 144 tiles: 1.46 GB).
+constexpr int K2_ROWS = 256;
+constexpr int K2_BK = 64;
+constexpr int K2_STAGES = 4;
+constexpr int K2_CONSUMERS = 256;
+constexpr int K2_THREADS = K2_CONSUMERS + 128;  // + a producer warpgroup
+constexpr int K2_A_BYTES = K2_ROWS * K2_BK * 2;
+constexpr int K2_B_BYTES = BN * K2_BK * 2;
+constexpr int K2_STAGE_BYTES = K2_A_BYTES + K2_B_BYTES;
+static_assert(K2_A_BYTES % 1024 == 0 && K2_B_BYTES % 1024 == 0,
+              "swizzle atoms stay 1024-byte aligned");
+constexpr int kSmemK2Bf16 = K2_STAGES * K2_STAGE_BYTES + 2 * K2_STAGES * 8 + 1024;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Max and first-max region of image ci for the thread's two rows of one
+// 64 x 144 accumulator tile (rows g and g + 8 of its warp's 16, columns
+// 8j + 2q (+1)).  Each thread scans its columns in increasing order, then
+// the quad's four partial results meet by shuffles: the larger value
+// wins, the lower region on a tie.  RT > 0 fixes R at compile time, so
+// only the registers that can hold the image's columns are scanned.
+template <int RT>
+__device__ __forceinline__ void k2_image(const float (&acc)[72], int ci,
+                                         long long row, int q, int R, int c0,
+                                         int C, int M, long long rows,
+                                         float* mx, int* am) {
+  const int Rr = RT > 0 ? RT : R;
+  const int lo = ci * Rr;
+  float best[2] = {-INFINITY, -INFINITY};
+  int arg[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (RT > 0 && (8 * j + 7 < ci * RT || 8 * j >= (ci + 1) * RT)) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * q + e;
+      const bool in = col >= lo && col < lo + Rr;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = acc[4 * j + 2 * h + e];
+        if (in && v > best[h]) {
+          best[h] = v;
+          arg[h] = col - lo;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best[h], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, arg[h], off);
+      if (ob > best[h] || (ob == best[h] && oa < arg[h])) {
+        best[h] = ob;
+        arg[h] = oa;
+      }
+    }
+    const long long r = row + 8 * h;
+    if (q == 0 && r < rows) {
+      const long long a = r / M, m = r % M;
+      const long long o = (a * C + c0 + ci) * M + m;
+      mx[o] = best[h];
+      am[o] = arg[h] == INT_MAX ? 0 : arg[h];
+    }
+  }
+}
+
+template <int RT>
+__device__ __forceinline__ void k2_epilogue(const float (&acc)[72],
+                                            long long row, int q, int R,
+                                            int nimg, int c0, int C, int M,
+                                            long long rows, float* mx,
+                                            int* am) {
+  if constexpr (RT > 0) {
+#pragma unroll
+    for (int ci = 0; ci < BN / RT; ++ci)
+      if (ci < nimg) k2_image<RT>(acc, ci, row, q, R, c0, C, M, rows, mx, am);
+  } else {
+#pragma unroll 1
+    for (int ci = 0; ci < nimg; ++ci)
+      k2_image<RT>(acc, ci, row, q, R, c0, C, M, rows, mx, am);
+  }
+}
+
+// Grid: (column tiles of CI images, row tiles of K2_ROWS rows).  RT: R
+// fixed at compile time (36, the model's region count), or 0.
+template <int RT>
+__global__ void __launch_bounds__(K2_THREADS, 1)
+k2_fwd_bf16(const __grid_constant__ CUtensorMap span_map,
+            const __grid_constant__ CUtensorMap obj_map,
+            float* __restrict__ mx, int* __restrict__ am, int A, int M, int C,
+            int R, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + K2_STAGES * K2_STAGE_BYTES);
+  uint64_t* empty = full + K2_STAGES;
+  const int CI = BN / R;
+  const int c0 = blockIdx.x * CI;
+  const int nimg = min(CI, C - c0);
+  const int row0 = blockIdx.y * K2_ROWS;
+  const int ktiles = (D + K2_BK - 1) / K2_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K2_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], K2_CONSUMERS / 32);  // consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the launch bound caps registers at 168 a thread (65,536 over 384);
+  // the producer warpgroup hands its share to the consumers, whose two
+  // 64 x 144 accumulators take 144.  One producer thread issues the loads.
+  if (warp >= K2_CONSUMERS / 32) {  // producer warpgroup
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == K2_CONSUMERS) {
+      sm90::tma_prefetch_desc(&span_map);
+      sm90::tma_prefetch_desc(&obj_map);
+      for (int t = 0; t < ktiles; ++t) {
+        const int s = t % K2_STAGES;
+        if (t >= K2_STAGES) sm90::mbar_wait(&empty[s], (t / K2_STAGES - 1) & 1);
+        unsigned char* st = smem + s * K2_STAGE_BYTES;
+        sm90::mbar_arrive_expect_tx(&full[s], K2_STAGE_BYTES);
+        sm90::tma_load_2d(st, &span_map, &full[s], t * K2_BK, row0);
+        sm90::tma_load_2d(st + K2_A_BYTES, &obj_map, &full[s], t * K2_BK,
+                          c0 * R);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = warp / 4;
+  float acc[2][72];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int i = 0; i < 72; ++i) acc[u][i] = 0.f;
+    sm90::fence_regs(acc[u]);
+  }
+  // one wgmma group in flight while the next tile's is issued; a stage is
+  // free once every consumer warp is past its group
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[t % K2_STAGES]);
+  };
+  for (int t = 0; t < ktiles; ++t) {
+    const int s = t % K2_STAGES;
+    sm90::mbar_wait(&full[s], (t / K2_STAGES) & 1);
+    const unsigned char* st = smem + s * K2_STAGE_BYTES;
+    const uint64_t db = sm90::desc_sw128(st + K2_A_BYTES, 16, 1024);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < K2_BK / 16; ++j)  // +32 bytes along the row
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint64_t da =
+            sm90::desc_sw128(st + (wg * 128 + 64 * u) * 128, 16, 1024);
+        sm90::wgmma_m64n144_ss(acc[u], da + 2 * j, db + 2 * j, 1);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (t > 0) release(t - 1);
+  }
+  sm90::wgmma_wait<0>();
+  release(ktiles - 1);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) sm90::fence_regs(acc[u]);
+
+  const long long rows = (long long)A * M;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long row =
+        row0 + wg * 128 + 64 * u + (warp % 4) * 16 + lane / 4;
+    k2_epilogue<RT>(acc[u], row, lane % 4, R, nimg, c0, C, M, rows, mx, am);
   }
 }
 
@@ -400,24 +505,23 @@ k3_dspan(const float* __restrict__ obj, const int* __restrict__ am,
 
 // ---------------------------------------------------------------- K4 ----
 
-constexpr int K4_G = 4;         // images per block, one a warp
-constexpr int K4_DS = 128;      // D columns per block, 4 a lane
-constexpr int K4_ROWS = 16;     // span rows whose loads are in flight together
+constexpr int K4_DS = 128;      // f32: D columns per block, 4 a lane
+constexpr int K4_ROWS = 16;     // f32: span rows whose loads are in flight together
 
-// Grid: (D slices, image groups, row segments).  Dynamic shared memory:
-// K4_G * R * K4_DS floats.  Writes the segment's partial sums to
-// out[segment] (C, R, D).  Rows go 32 at a time: lane i fetches the argmax
-// and g of row base + i; then, K4_ROWS rows at a time, every lane loads its
-// 4 columns of each row (all loads in flight together), and the updates run
-// in row order with the argmax and g broadcast from their lane.
-template <typename TS>
-__global__ void __launch_bounds__(32 * K4_G)
-k4_dobj(const TS* __restrict__ span, const int* __restrict__ am,
-        const float* __restrict__ g, float* __restrict__ out, int A, int M,
-        int C, int R, int D, int segs) {
+// f32 spans.  Grid: (D slices, image groups of G, row segments).  Dynamic
+// shared memory: G * R * K4_DS floats.  Writes the segment's partial sums
+// to out[segment] (C, R, D).  Rows go 32 at a time: lane i fetches the
+// argmax and g of row base + i; then, K4_ROWS rows at a time, every lane
+// loads its 4 columns of each row (all loads in flight together), and the
+// updates run in row order with the argmax and g broadcast from their lane.
+template <int G>
+__global__ void __launch_bounds__(32 * G)
+k4_dobj_f32(const float* __restrict__ span, const int* __restrict__ am,
+            const float* __restrict__ g, float* __restrict__ out, int A, int M,
+            int C, int R, int D, int segs) {
   extern __shared__ float4 acc_all[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = blockIdx.y * K4_G + warp;
+  const int c = blockIdx.y * G + warp;
   const int d = blockIdx.x * K4_DS + 4 * lane;
   if (c >= C) return;  // whole warp; no barrier follows
   // this thread's accumulator column: acc[r * 32] for r < R
@@ -460,6 +564,192 @@ k4_dobj(const TS* __restrict__ span, const int* __restrict__ am,
     *reinterpret_cast<float4*>(o + (long long)r * D) = acc[r * 32];
 }
 
+// bf16 spans: the one-hot GEMM.  A block owns K4W_ROWS region rows (flat
+// c * R + r) and K4W_BN columns of D; a stage holds a 64-row k tile of
+// span (four 64-wide MN-major boxes, 32 KB) and the (argmax, g) pairs of
+// those rows for the block's KI images.
+constexpr int K4W_ROWS = 128;
+constexpr int K4W_BN = 200;
+constexpr int K4W_BK = 64;
+constexpr int K4W_CHUNKS = 4;                       // 4 x 64 >= K4W_BN
+constexpr int K4W_CHUNK_BYTES = K4W_BK * 128;
+constexpr int K4W_B_BYTES = K4W_CHUNKS * K4W_CHUNK_BYTES;
+constexpr int K4W_CONSUMERS = 256;
+constexpr int K4W_THREADS = K4W_CONSUMERS + 32;
+constexpr int kSmemBlock = 232448;                  // a block's shared memory
+
+// images a block of K4W_ROWS region rows can touch
+int k4_images(int C, int R) {
+  const int ki = (K4W_ROWS - 1 + R - 1) / R + 1;
+  return ki < C ? ki : C;
+}
+size_t k4_smem(int stages, int KI) {
+  return (size_t)stages * (K4W_B_BYTES + KI * K4W_BK * 8) + 16 * stages + 1024;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Grid: (column tiles of K4W_BN, region-row tiles of K4W_ROWS, row
+// segments).  Segment s walks k tiles [T s / segs, T (s + 1) / segs) of
+// the T = ceil(A M / 64) tiles and writes its partial sums to out[s].
+__global__ void __launch_bounds__(K4W_THREADS, 1)
+k4_dobj_gemm(const __grid_constant__ CUtensorMap span_map,
+             const int* __restrict__ am, const float* __restrict__ g,
+             float* __restrict__ out, int A, int M, int C, int R, int D,
+             int segs, int KI, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int2* amg = reinterpret_cast<int2*>(smem + stages * K4W_B_BYTES);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(amg + (size_t)stages * KI * K4W_BK);
+  uint64_t* empty = full + stages;
+  const long long rows = (long long)A * M;
+  const int nrows = C * R;
+  const int p0 = blockIdx.y * K4W_ROWS;
+  const int cb = p0 / R;                     // the block's first image
+  const int d0 = blockIdx.x * K4W_BN;
+  const long long T = (rows + K4W_BK - 1) / K4W_BK;
+  const int t0 = (int)(T * blockIdx.z / segs);
+  const int t1 = (int)(T * (blockIdx.z + 1) / segs);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 32);                  // producer lanes
+      sm90::mbar_init(&empty[s], K4W_CONSUMERS / 32);  // consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == K4W_CONSUMERS / 32) {  // producer warp
+    int chunks = 0;                  // boxes with a column inside D
+    while (chunks < K4W_CHUNKS && d0 + 64 * chunks < D) ++chunks;
+    if (lane == 0) sm90::tma_prefetch_desc(&span_map);
+    for (int t = t0; t < t1; ++t) {
+      const int i = t - t0, s = i % stages;
+      if (i >= stages) sm90::mbar_wait(&empty[s], (i / stages - 1) & 1);
+      if (lane == 0) {
+        sm90::mbar_expect_tx(&full[s], chunks * K4W_CHUNK_BYTES);
+        for (int j = 0; j < chunks; ++j)
+          sm90::tma_load_2d(smem + s * K4W_B_BYTES + j * K4W_CHUNK_BYTES,
+                            &span_map, &full[s], d0 + 64 * j, t * K4W_BK);
+      }
+      // (argmax, g) of rows k = t * 64 + kk for images cb + ci, copied
+      // asynchronously; rows past the end and images past C arrive as
+      // zeros (g = 0: no contribution)
+      int2* st = amg + (size_t)s * KI * K4W_BK;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kk = lane + 32 * half;
+        const int k = t * K4W_BK + kk;
+        const bool ok = k < rows;
+        const int a = ok ? k / M : 0;
+        const long long base = ((long long)a * C + cb) * M + (ok ? k - a * M : 0);
+        for (int ci = 0; ci < KI; ++ci) {
+          const bool in = ok && cb + ci < C;
+          const long long off = in ? base + (long long)ci * M : 0;
+          sm90::cp_async4(&st[ci * K4W_BK + kk].x, am + off, in ? 4 : 0);
+          sm90::cp_async4(&st[ci * K4W_BK + kk].y, g + off, in ? 4 : 0);
+        }
+      }
+      sm90::mbar_arrive_cp_async(&full[s]);
+    }
+    return;
+  }
+
+  // consumer: this thread's rows n[h] = p0 + 64 wg + 16 w + lane/4 + 8h
+  const int wg = warp / 4, q = lane % 4;
+  int ci[2], rr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = p0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * h;
+    const bool ok = n < nrows;
+    ci[h] = ok ? n / R - cb : 0;
+    rr[h] = ok ? n % R : -2;                 // -2 matches no argmax
+  }
+  float acc[100];
+#pragma unroll
+  for (int i = 0; i < 100; ++i) acc[i] = 0.f;
+  sm90::fence_regs(acc);
+  // Wait for tile t, build its A fragments of W = g [am = r] in f (bf16
+  // hi and lo terms; register 2e + h holds row h, k = 16j + 2q + 8e and
+  // the next k), and issue its wgmmas as one group.
+  auto issue = [&](uint32_t(&f)[2][4][4], int t) {
+    const int i = t - t0, s = i % stages;
+    sm90::mbar_wait(&full[s], (i / stages) & 1);
+    const int2* st = amg + (size_t)s * KI * K4W_BK;
+#pragma unroll
+    for (int j = 0; j < K4W_BK / 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = 16 * j + 2 * q + 8 * e;
+          const int4 v = *reinterpret_cast<const int4*>(st + ci[h] * K4W_BK + kk);
+          const float w0 = v.x == rr[h] ? __int_as_float(v.y) : 0.f;
+          const float w1 = v.z == rr[h] ? __int_as_float(v.w) : 0.f;
+          const float h0 = __bfloat162float(__float2bfloat16_rn(w0));
+          const float h1 = __bfloat162float(__float2bfloat16_rn(w1));
+          f[0][j][2 * e + h] = pack_bf16(h0, h1);
+          f[1][j][2 * e + h] = pack_bf16(w0 - h0, w1 - h1);
+        }
+    const unsigned char* b = smem + s * K4W_B_BYTES;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < K4W_BK / 16; ++j) {  // 16 k-rows = 2048 bytes
+      const uint64_t db = sm90::desc_sw128(b + 2048 * j, K4W_CHUNK_BYTES, 1024);
+      sm90::wgmma_m64n200_rs(acc, f[0][j], db, 1);
+      sm90::wgmma_m64n200_rs(acc, f[1][j], db, 1);
+    }
+    sm90::wgmma_commit();
+  };
+  // tile t's stage is free once every consumer warp is past its wgmmas
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[(t - t0) % stages]);
+  };
+  // two fragment sets: tile t + 1's are built while tile t's wgmmas run
+  uint32_t fa[2][4][4], fb[2][4][4];
+  if (t0 < t1) {
+    issue(fa, t0);
+    int t = t0 + 1;
+    for (; t + 1 < t1; t += 2) {
+      issue(fb, t);
+      sm90::wgmma_wait<1>();
+      release(t - 1);
+      issue(fa, t + 1);
+      sm90::wgmma_wait<1>();
+      release(t);
+    }
+    if (t < t1) {
+      issue(fb, t);
+      sm90::wgmma_wait<1>();
+      release(t - 1);
+      ++t;
+    }
+    sm90::wgmma_wait<0>();
+    release(t - 1);
+  }
+  sm90::fence_regs(acc);
+
+  float* o = out + (long long)blockIdx.z * nrows * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = p0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * h;
+    if (n >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < K4W_BN / 8; ++j) {
+      const int col = d0 + 8 * j + 2 * q;    // D % 8 == 0: col + 1 < D too
+      if (col < D)
+        *reinterpret_cast<float2*>(o + (long long)n * D + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // dobj[i] = sum over segments s, in order, of partial[s][i].
 __global__ void k4_reduce(const float* __restrict__ partial,
                           float* __restrict__ dobj, long long n, int segs) {
@@ -480,22 +770,34 @@ extern "C" {
 
 // span (A, M, D) and obj (C, R, D) in the same dtype (bf16 if bf16, else
 // f32), contiguous; mx (A, C, M) f32, am (A, C, M) int32.  Needs
-// D % 8 == 0 and 1 <= R <= 144.
+// D % 8 == 0, 1 <= R <= 144, and for bf16 16-byte-aligned span and obj.
 int span_region_fwd(const void* span, const void* obj, float* mx, int* am,
                     int A, int M, int C, int R, int D, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R < 1 || R > BN || D % 8) return (int)cudaErrorInvalidValue;
-  if (A * (long long)M == 0 || C == 0) return 0;
-  const dim3 grid(tiles(C, BN / R), tiles((long long)A * M, BM));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  if (bf16)
-    k2_fwd<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(span),
-        static_cast<const __nv_bfloat16*>(obj), mx, am, A, M, C, R, D);
-  else
-    k2_fwd<float><<<grid, NT, 0, st>>>(static_cast<const float*>(span),
-                                       static_cast<const float*>(obj), mx, am,
-                                       A, M, C, R, D);
+  const long long rows = (long long)A * M;
+  if (rows == 0 || C == 0) return 0;
+  if (!bf16) {
+    const dim3 grid(tiles(C, BN / R), tiles(rows, BM));
+    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+    k2_fwd_f32<<<grid, NT, 0, st>>>(static_cast<const float*>(span),
+                                    static_cast<const float*>(obj), mx, am, A,
+                                    M, C, R, D);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(tiles(C, BN / R), tiles(rows, K2_ROWS));
+  if (grid.y > 65535u || rows > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap span_map, obj_map;
+  cudaError_t err = sm90_host::tensor_map_bf16(&span_map, span, rows, D, K2_ROWS, K2_BK);
+  if (err == cudaSuccess)
+    err = sm90_host::tensor_map_bf16(&obj_map, obj, (long long)C * R, D, BN, K2_BK);
+  if (err != cudaSuccess) return (int)err;
+  const auto kern = R == 36 ? k2_fwd_bf16<36> : k2_fwd_bf16<0>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemK2Bf16);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, K2_THREADS, kSmemK2Bf16, st>>>(span_map, obj_map, mx, am, A, M, C,
+                                              R, D);
   return (int)cudaGetLastError();
 }
 
@@ -520,34 +822,53 @@ int span_region_dspan(const float* obj, const int* am, const float* g,
 
 // span (A, M, D) bf16 if bf16, else f32; am (A, C, M) int32; g (A, C, M)
 // f32; partial (segs, C, R, D) f32 scratch (may be dobj when segs == 1);
-// dobj (C, R, D) f32.
+// dobj (C, R, D) f32.  Needs D % 8 == 0 and for bf16 a 16-byte-aligned
+// span.  The f32 kernel takes 4 images a block where their accumulators
+// fit a block's shared memory, else 2 (ops/span_region.py mirrors this).
 int span_region_dobj(const void* span, const int* am, const float* g,
                      float* partial, float* dobj, int A, int M, int C, int R,
                      int D, int segs, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (segs < 1 || segs > 65535 || R < 1 || D % 4)
+  if (segs < 1 || segs > 65535 || R < 1 || R > BN || D % 8)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)C * R * D;
+  const long long rows = (long long)A * M;
   if (n == 0) return 0;
-  const size_t smem = (size_t)K4_G * R * K4_DS * sizeof(float);
-  const dim3 grid(tiles(D, K4_DS), tiles(C, K4_G), (unsigned)segs);
+  if (rows == 0) return (int)cudaMemsetAsync(dobj, 0, n * sizeof(float), st);
   float* out = segs == 1 ? dobj : partial;
   cudaError_t err;
   if (bf16) {
-    err = cudaFuncSetAttribute(k4_dobj<__nv_bfloat16>,
+    if (rows > INT_MAX - K4W_BK || (long long)C * R > INT_MAX)
+      return (int)cudaErrorInvalidConfiguration;
+    const int KI = k4_images(C, R);
+    int stages = 4;
+    while (stages > 2 && k4_smem(stages, KI) > (size_t)kSmemBlock) --stages;
+    const size_t smem = k4_smem(stages, KI);
+    if (smem > (size_t)kSmemBlock) return (int)cudaErrorInvalidValue;
+    const dim3 grid(tiles(D, K4W_BN), tiles((long long)C * R, K4W_ROWS),
+                    (unsigned)segs);
+    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+    CUtensorMap span_map;
+    err = sm90_host::tensor_map_bf16(&span_map, span, rows, D,
+                                     K4W_BK, 64);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(k4_dobj_gemm,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    k4_dobj<__nv_bfloat16><<<grid, 32 * K4_G, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(span), am, g, out, A, M, C, R, D,
-        segs);
+    k4_dobj_gemm<<<grid, K4W_THREADS, smem, st>>>(span_map, am, g, out, A, M, C,
+                                                  R, D, segs, KI, stages);
   } else {
-    err = cudaFuncSetAttribute(k4_dobj<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const bool four = (size_t)4 * R * K4_DS * sizeof(float) <= (size_t)kSmemBlock;
+    const int G = four ? 4 : 2;
+    const size_t smem = (size_t)G * R * K4_DS * sizeof(float);
+    const dim3 grid(tiles(D, K4_DS), tiles(C, G), (unsigned)segs);
+    const auto kern = four ? k4_dobj_f32<4> : k4_dobj_f32<2>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    k4_dobj<float><<<grid, 32 * K4_G, smem, st>>>(
-        static_cast<const float*>(span), am, g, out, A, M, C, R, D, segs);
+    kern<<<grid, 32 * G, smem, st>>>(static_cast<const float*>(span), am, g, out,
+                                     A, M, C, R, D, segs);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (segs > 1) {

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``cliora_tpu_torch/_build/`` at first use -- nothing is built when a
 module is imported, and nothing includes PyTorch's headers, so a build
-takes seconds.  The library file name carries a hash of the source and
-the flags, so an edited source is never served by a stale build.
+takes seconds.  The library file name carries a hash of the source, of
+every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is never served by a stale build.
 
 ``build`` reports each build's seconds and the ``-Xptxas -v`` lines
 (registers, shared memory, spills).
@@ -14,6 +15,7 @@ the flags, so an edited source is never served by a stale build.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -55,11 +57,18 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, name + ".cu")
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def lib_path(name: str) -> str:
-    """Build output for ``csrc/<name>.cu``, keyed by source and flags."""
+    """Build output for ``csrc/<name>.cu``, keyed by source, headers and
+    flags."""
     h = hashlib.sha1()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    for path in [_source(name), *_headers()]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

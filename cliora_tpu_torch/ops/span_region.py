@@ -54,10 +54,9 @@ CHUNK = 8        # images per chunk of the 'chunked' forward
 BWD_CHUNK = 16   # images per chunk of the plain backward
 IMPLS = ("einsum", "chunked", "cuda")
 
-# K2's column tile (csrc/span_region.cu BN) holds whole images; K4's
-# shared accumulator (K4_G * R * K4_DS floats) must fit a block's 227 KB
+# K2's column tile (csrc/span_region.cu BN) holds whole images
 MAX_REGIONS = 144
-_SMEM_LIMIT = 232448
+_SMEM_LIMIT = 232448     # shared memory a block can use
 
 
 # -- plain versions ---------------------------------------------------------
@@ -173,10 +172,15 @@ _I32 = (torch.int32,)
 
 def supports(D: int, R: int) -> bool:
     """Whether the kernels take this width and region count: D a multiple
-    of 8 (16-byte loads of bf16 rows) and at most 1024 (K3's registers),
-    1 <= R <= MAX_REGIONS, and K4's accumulator within shared memory."""
-    return (8 <= D <= 1024 and D % 8 == 0 and 1 <= R <= MAX_REGIONS
-            and _DOBJ_GROUP * R * _DOBJ_DSLICE * 4 <= _SMEM_LIMIT)
+    of 8 (16-byte rows of bf16 for TMA and the loaders) and at most 1024
+    (K3's registers), and 1 <= R <= MAX_REGIONS."""
+    return 8 <= D <= 1024 and D % 8 == 0 and 1 <= R <= MAX_REGIONS
+
+
+def _check_aligned(name, t: torch.Tensor):
+    """TMA reads a bf16 tensor only from a 16-byte-aligned base."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
 
 
 def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
@@ -193,6 +197,9 @@ def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
     obj = obj.to(span.dtype).contiguous()   # one operand dtype in the GEMM
     _check("span", span, _SPAN_DTYPES, (A, M, D), dev)
     _check("obj", obj, _SPAN_DTYPES, (C, R, D), dev)
+    if span.dtype == torch.bfloat16:
+        _check_aligned("span", span)
+        _check_aligned("obj", obj)
     mx = torch.empty((A, C, M), dtype=torch.float32, device=dev)
     am = torch.empty((A, C, M), dtype=torch.int32, device=dev)
     lib = _lib()
@@ -237,19 +244,40 @@ def span_region_dspan(obj: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
     return dspan
 
 
-# K4 row segments: each (image group, D slice) is walked in SEGMENTS_TARGET
-# blocks' worth of fixed row segments, whose partial sums a second pass adds
-# in segment order.  The count depends on the shapes only, so a result is
-# the same bits on every call.
-_DOBJ_GROUP = 4          # images per block (csrc/span_region.cu K4_G)
-_DOBJ_DSLICE = 128       # D columns per block (K4_DS)
+# K4 row segments.  The A*M span rows are cut into fixed segments; each
+# block sums one segment for its tile of dobj, and a second pass adds the
+# segments' partial sums in segment order.  The count depends on the
+# shapes only, so a result is the same bits on every call.
+# bf16 spans (the one-hot GEMM, csrc/span_region.cu k4_dobj_gemm): tiles of
+# _GEMM_ROWS region rows x _GEMM_COLS columns, segments of whole 64-row k
+# tiles, enough segments for _GEMM_TARGET_BLOCKS blocks (six waves of one
+# block on each of the H100's 132 SMs), at least _GEMM_MIN_TILES k tiles
+# each.
+_GEMM_ROWS = 128         # K4W_ROWS
+_GEMM_COLS = 200         # K4W_BN
+_GEMM_BK = 64            # K4W_BK
+_GEMM_TARGET_BLOCKS = 792
+_GEMM_MIN_TILES = 4
+# f32 spans (k4_dobj_f32): blocks of _DOBJ_GROUP images (2 where 4 images'
+# accumulators exceed shared memory) x _DOBJ_DSLICE columns, walked in
+# enough segments for _DOBJ_TARGET_BLOCKS blocks, at least _DOBJ_MIN_ROWS
+# rows each.
+_DOBJ_DSLICE = 128       # K4_DS
 _DOBJ_TARGET_BLOCKS = 1056   # 8 blocks for each of the H100's 132 SMs
-_DOBJ_MIN_ROWS = 256     # rows per segment, at least
+_DOBJ_MIN_ROWS = 256
 
 
-def dobj_segments(rows: int, C: int, D: int) -> int:
+def _dobj_group(R: int) -> int:
+    return 4 if 4 * R * _DOBJ_DSLICE * 4 <= _SMEM_LIMIT else 2
+
+
+def dobj_segments(rows: int, C: int, R: int, D: int, bf16: bool) -> int:
     """Row segments of K4 for ``rows = A * M`` span rows."""
-    base = -(-C // _DOBJ_GROUP) * -(-D // _DOBJ_DSLICE)
+    if bf16:
+        base = -(-C * R // _GEMM_ROWS) * -(-D // _GEMM_COLS)
+        want = max(1, round(_GEMM_TARGET_BLOCKS / base))
+        return max(1, min(want, -(-rows // _GEMM_BK) // _GEMM_MIN_TILES))
+    base = -(-C // _dobj_group(R)) * -(-D // _DOBJ_DSLICE)
     want = -(-_DOBJ_TARGET_BLOCKS // base)
     return max(1, min(want, rows // _DOBJ_MIN_ROWS))
 
@@ -271,7 +299,10 @@ def span_region_dobj(span: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
     _check("span", span, _SPAN_DTYPES, (A, M, D), dev)
     _check("am", am, _I32, (A, C, M), dev)
     _check("g", g, _F32, (A, C, M), dev)
-    segs = dobj_segments(A * M, C, D)
+    bf16 = span.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned("span", span)
+    segs = dobj_segments(A * M, C, R, D, bf16)
     dobj = torch.empty((C, R, D), dtype=torch.float32, device=dev)
     partial = (torch.empty((segs, C, R, D), dtype=torch.float32, device=dev)
                if segs > 1 else dobj)
@@ -280,8 +311,7 @@ def span_region_dobj(span: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.span_region_dobj(
             span.data_ptr(), am.data_ptr(), g.data_ptr(), partial.data_ptr(),
-            dobj.data_ptr(), A, M, C, R, D, segs,
-            int(span.dtype == torch.bfloat16), stream)
+            dobj.data_ptr(), A, M, C, R, D, segs, int(bf16), stream)
     _raise_on(err, "span_region_dobj")
     launches["span_region_dobj"] += 1
     return dobj.to(obj_dtype)

@@ -128,15 +128,87 @@ def test_wrappers_cpu_route_is_plain():
 
 def test_supports_and_segments():
     assert sr.supports(400, 36) and sr.supports(24, 7)
-    assert not sr.supports(402, 36)          # 16-byte bf16 row loads
+    assert not sr.supports(402, 36)          # 16-byte bf16 rows (TMA)
     assert not sr.supports(400, 145)         # wider than a column tile
     assert not sr.supports(1032, 36)         # K3's register accumulators
-    assert sr.supports(400, 113) and not sr.supports(400, 114)  # K4 smem
-    assert sr.dobj_segments(128 * 210, 128, 400) == 9
-    assert sr.dobj_segments(A * M, C, D) == 1
+    # K4 keeps no shared accumulator on bf16 spans, and its f32 kernel
+    # takes 2 images a block where 4 do not fit: every R up to 144
+    assert sr.supports(400, 113) and sr.supports(400, 114)
+    assert sr.supports(400, 144)
+    assert sr._dobj_group(113) == 4 and sr._dobj_group(114) == 2
+    # bf16: 36 x 2 tiles of (128 region rows, 200 columns), 792 / 72
+    # segments of whole 64-row k tiles; f32: the scatter's 9
+    assert sr.dobj_segments(128 * 210, 128, 36, 400, True) == 11
+    assert sr.dobj_segments(128 * 210, 128, 36, 400, False) == 9
+    assert sr.dobj_segments(128 * 20, 128, 36, 400, True) == 10
+    assert sr.dobj_segments(A * M, C, R, D, True) == 1
+    assert sr.dobj_segments(A * M, C, R, D, False) == 1
     with pytest.raises(ValueError):
         sr.span_region_max(torch.zeros(1, 1, 8), torch.zeros(1, 1, 8),
                            "pallas")
+
+
+def _bf16_terms(g: torch.Tensor, terms: int):
+    """g split as K4's bf16 route splits it: each term the bf16 rounding
+    of what the earlier terms left."""
+    out, rest = [], g.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def _onehot_gemm_dobj(span, am, g, R, terms=2):
+    """The arithmetic of K4's bf16 route, emulated: dobj (C*R, D) = W .
+    span over the A*M span rows, W[c R + r, a M + m] = g[a, c, m]
+    [am[a, c, m] = r], with W split into bf16 terms; each term times a
+    bf16 span value is exact in f32, and the sums are f32."""
+    A, M, D = span.shape
+    C = g.shape[1]
+    s = span.float().reshape(A * M, D)
+    idx = am.permute(1, 0, 2).reshape(C, 1, A * M).long()
+    out = torch.zeros(C * R, D)
+    for term in _bf16_terms(g.permute(1, 0, 2).reshape(C, 1, A * M), terms):
+        w = torch.zeros(C, R, A * M).scatter_(1, idx, term)
+        out += w.reshape(C * R, A * M) @ s
+    return out.reshape(C, R, D)
+
+
+def _dobj_inputs(a, m, c, r, d, g_kind, seed=7):
+    rs = np.random.RandomState(seed)
+    span = torch.from_numpy(rs.randn(a, m, d).astype(np.float32))
+    am = torch.from_numpy(rs.randint(0, r, (a, c, m)).astype(np.int32))
+    if g_kind == "normal":
+        g = rs.randn(a, c, m)
+    else:   # magnitudes spread over 1e-6 ... 1e3, either sign
+        g = (np.sign(rs.randn(a, c, m))
+             * 10.0 ** rs.uniform(-6, 3, (a, c, m)))
+    return span.to(torch.bfloat16), am, torch.from_numpy(g.astype(np.float32))
+
+
+@pytest.mark.parametrize("g_kind", ["normal", "spread"])
+@pytest.mark.parametrize("a,m,c,r,d", [(A, M, C, R, D), (37, 13, 37, 36, 400)])
+def test_onehot_gemm_split_matches_plain(a, m, c, r, d, g_kind):
+    """K4's bf16 arithmetic (two bf16 terms of g, f32 sums) within 1e-4 of
+    the plain version's largest magnitude, the limit K4 is held to on the
+    card; the same rows all on region 0 (init) give the same bound."""
+    span, am, g = _dobj_inputs(a, m, c, r, d, g_kind)
+    for amx in (am, torch.zeros_like(am)):
+        want = sr.span_region_dobj_plain(span, amx, g, r, torch.float32)
+        got = _onehot_gemm_dobj(span, amx, g, r)
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def test_bf16_split_leaves_under_2_pow_minus_16():
+    """What two bf16 terms leave out of g is at most 2^-16 of it, over
+    magnitudes 1e-6 ... 1e3: bf16 rounds to 8 significant bits (relative
+    error at most 2^-8), and the second term rounds the first's residual."""
+    _, _, g = _dobj_inputs(4, 50, 9, 36, 8, "spread")
+    hi, lo = _bf16_terms(g, 2)
+    assert torch.all((g - hi).abs() <= 2.0 ** -8 * g.abs())
+    assert torch.all((g - hi - lo).abs() <= 2.0 ** -16 * g.abs())
 
 
 @pytest.fixture
@@ -150,12 +222,19 @@ def cuda():
 
 @pytest.mark.parametrize("a,m,c,r,d", [
     (3, 17, 5, 7, 24), (37, 13, 37, 36, 400), (2, 1, 1, 36, 64),
-    (9, 5, 130, 3, 16)])
+    (9, 5, 130, 3, 16),
+    # edges of the Hopper tiles: R = 144 (one image a K2 column tile, K4
+    # rows past a 128-row tile), D = 16 (one K2 k tile, K4 boxes outside
+    # D), a D tail inside a 64-deep k tile, C*R not a multiple of 128 with
+    # many K4 row segments
+    (5, 7, 3, 144, 400), (4, 9, 6, 36, 16), (3, 50, 5, 36, 72),
+    (64, 100, 16, 36, 400)])
 def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
     """K2: f32 max within 1e-4 of the plain version (scaled to the
     scores' magnitude), argmax equal wherever the top-2 gap exceeds that;
     bf16 argmax agreement >= 0.99.  K3/K4 at 1e-4 (f32) of the plain
-    versions and bitwise-equal over two calls.  obj all zero: argmax 0."""
+    versions and bitwise-equal over two calls.  obj all zero: argmax 0;
+    g all zero: dobj zero."""
     gen = torch.Generator(device=cuda).manual_seed(a * m + c)
     span = torch.randn(a, m, d, generator=gen, device=cuda)
     obj = torch.randn(c, r, d, generator=gen, device=cuda)
@@ -193,3 +272,6 @@ def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
         zmx, zam = sr.span_region_fwd(s, torch.zeros_like(obj))
         assert torch.equal(zam, torch.zeros_like(zam))
         assert torch.equal(zmx, torch.zeros_like(zmx))
+        zdobj = sr.span_region_dobj(s, zam, torch.zeros_like(g), r,
+                                    torch.float32)
+        assert torch.equal(zdobj, torch.zeros_like(zdobj))
