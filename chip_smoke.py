@@ -18,7 +18,12 @@ full width with random weights from a seed:
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
-and times each kernel against its plain version and its bound.  K2-K4
+and times each kernel against its plain version and its bound.  K1 is
+checked at the parse shapes and at the shapes of the card-only test
+(tests/test_torch_inside_cky.py: D = 48, 24 and 16, one without the
+unit norm), twice per call to show it repeats bit for bit, and its
+timing breaks down by device function (project, fc0, fc1, combine: ms,
+launches, TFLOP/s or GB/s).  K2-K4
 are checked at the step's calls (VG f32, contrastive bf16 and f32), an
 odd shape and the edges of the Hopper tiles, and timed at the three
 calls; the two kernels redesigned for Hopper (K2 on wgmma + TMA, K4 as a
@@ -51,8 +56,9 @@ from cliora_tpu_torch.analysis import trees
 from cliora_tpu_torch.chart.offsets import ncells
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import embed_span, leaf_transform
-from cliora_tpu_torch.models.params import to_device
+from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky, span_region
+from cliora_tpu_torch.ops.core import unit_norm
 from cliora_tpu_torch.training.checkpoint import flatten, params_from_numpy
 from cliora_tpu_torch.training.trainer import (
     TrainConfig,
@@ -114,16 +120,22 @@ KERNELS = {
         "replaces": "cliora_tpu/ops/span_region.py:177",
     },
 }
+# K1's device functions as the profiler names them (f32: fc0, fc1_simt,
+# project_simt; bf16: fc1_wgmma, project_wgmma)
+K1_FUNCS = re.compile(r"::(prep_weights|init_leaves|combine|fc0|project_simt|"
+                      r"project_wgmma|fc1_simt|fc1_wgmma)[<(]")
 # the __global__ functions of each kernel, as the profiler names them: its
 # CUDA launches per call are counted from the profile
 DEVICE_FUNCS = {
-    "inside_cky": re.compile(
-        r"::(prep_weights|init_leaves|project|fc0|fc1|combine)<"),
+    "inside_cky": K1_FUNCS,
     "span_region_fwd": re.compile(r"::k2_fwd_(bf16<|f32\()"),
     "span_region_dspan": re.compile(r"::k3_dspan<"),
     "span_region_dobj": re.compile(r"::k4_(dobj_gemm\(|dobj_f32<|reduce\()"),
 }
 SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
+# K1 at the shapes of its card-only test (B, n, D, norm): odd widths, one
+# k tile, one level, no unit norm
+K1_TEST_SHAPES = ((5, 7, 48, "unit"), (2, 2, 24, "unit"), (6, 3, 16, "none"))
 
 
 def emit(obj):
@@ -229,10 +241,13 @@ def cuda_ms(fn, reps=10, runs=5):
     return out
 
 
-def kernel_vs_plain(dp, h0, dtype):
-    got = inside_cky.fused_inside_cky(dp, h0, compute_dtype=dtype)
+def kernel_vs_plain(dp, h0, dtype, norm="unit"):
+    got = inside_cky.fused_inside_cky(dp, h0, norm=norm, compute_dtype=dtype)
     torch.cuda.synchronize()
-    want = inside_cky.fused_inside_cky_plain(dp, h0, compute_dtype=dtype)
+    want = inside_cky.fused_inside_cky_plain(dp, h0, norm=norm,
+                                             compute_dtype=dtype)
+    again = inside_cky.fused_inside_cky(dp, h0, norm=norm,
+                                        compute_dtype=dtype)
     torch.cuda.synchronize()
     (s, bp, val), (ps, pbp, pval) = got, want
     differ = int((bp != pbp).sum().item())
@@ -245,7 +260,55 @@ def kernel_vs_plain(dp, h0, dtype):
         "finite": bool(torch.isfinite(s).all() and torch.isfinite(val).all()),
         "shapes_ok": (tuple(s.shape) == (h0.shape[0], ncells(h0.shape[1]), 1)
                       and bp.dtype == torch.int32),
+        "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
     }
+
+
+def check_k1(rec, what):
+    check(rec["finite"] and rec["shapes_ok"], f"{what}: non-finite or bad shape")
+    check(rec["bitwise_repeat"], f"{what}: two calls differ")
+    if rec["dtype"] == "float32":
+        check(rec["cells_differ"] == 0 and rec["max_abs_err"] <= F32_ATOL,
+              f"{what} disagrees with plain")
+    else:
+        check(rec["bp_agree"] >= BF16_BP_AGREE
+              and rec["max_abs_err"] <= BF16_ATOL,
+              f"{what} disagrees with plain: bp agreement "
+              f"{rec['bp_agree']}, max abs error {rec['max_abs_err']}")
+
+
+def k1_by_function(by_kernel, b, n, d, dtype):
+    """K1's profile per device function: ms and launches per call, and the
+    rate of its work.  project: 6 D^2 FLOP per cell below the root; fc1:
+    2 D^2 per (cell, split) row; fc0: the f32 P_l and P_r slices read and
+    h1 written per row; combine: l M (f32), r and hk (chart dtype) read
+    per row, the cell's h written."""
+    es = 2 if dtype == "bfloat16" else 4
+    rows = b * sum((n - lvl) * lvl for lvl in range(1, n))
+    cells = b * (ncells(n) - 1)
+    work = {"project": ("flop", cells * 6 * d * d),
+            "fc1": ("flop", rows * 2 * d * d),
+            "fc0": ("bytes", rows * d * 12),
+            "combine": ("bytes", rows * d * (4 + 2 * es)
+                        + b * (ncells(n) - n) * d * es)}
+    out = {}
+    for name, rec in by_kernel.items():
+        m = K1_FUNCS.search(name)
+        if not m:
+            continue
+        fn = m.group(1)
+        row = out.setdefault(fn, {"ms": 0.0, "launches": 0})
+        row["ms"] += rec["ms"]
+        row["launches"] += rec["count"]
+    for fn, row in out.items():
+        kind, amount = work.get(fn.split("_")[0], (None, None))
+        if kind == "flop":
+            row["flop"] = amount
+            row["tflop_s"] = amount / row["ms"] / 1e9
+        elif kind == "bytes":
+            row["bytes"] = amount
+            row["gb_s"] = amount / row["ms"] / 1e6
+    return out
 
 
 def profile_kernels(fn, reps=1):
@@ -303,22 +366,24 @@ def parse_path(rs):
         with torch.no_grad():
             h0 = leaves(tr32, rs.randint(0, V, (b, n)))
             for dtype in ("float32", "bfloat16"):
-                rec = kernel_vs_plain(dp, h0, dtype)
-                emit({"phase": "kernel", "name": "inside_cky", "dtype": dtype,
+                rec = {"dtype": dtype, **kernel_vs_plain(dp, h0, dtype)}
+                emit({"phase": "kernel", "name": "inside_cky",
                       "shape": [b, n, D], **rec})
-                check(rec["finite"] and rec["shapes_ok"],
-                      f"inside_cky {dtype} {b}x{n}: non-finite or bad shape")
-                if dtype == "float32":
-                    check(rec["cells_differ"] == 0
-                          and rec["max_abs_err"] <= F32_ATOL,
-                          f"inside_cky f32 {b}x{n} disagrees with plain")
-                else:
-                    check(rec["bp_agree"] >= BF16_BP_AGREE
-                          and rec["max_abs_err"] <= BF16_ATOL,
-                          f"inside_cky bf16 {b}x{n} disagrees with plain: "
-                          f"bp agreement {rec['bp_agree']}, max abs error "
-                          f"{rec['max_abs_err']}")
+                check_k1(rec, f"inside_cky {dtype} {b}x{n}")
                 checked[(b, n, dtype)] = rec
+    # the shapes of the card-only test, with weights of their own width
+    test_rs = np.random.RandomState(SEED + 3)
+    for (b, n, d, norm) in K1_TEST_SHAPES:
+        sdp = to_device(init_diora_params(
+            torch.Generator().manual_seed(SEED), ModelConfig(size=d)),
+            tr32.device)
+        h0 = unit_norm(torch.as_tensor(
+            test_rs.randn(b, n, d).astype(np.float32))).to(tr32.device)
+        for dtype in ("float32", "bfloat16"):
+            rec = {"dtype": dtype, **kernel_vs_plain(sdp, h0, dtype, norm)}
+            emit({"phase": "kernel", "name": "inside_cky",
+                  "shape": [b, n, d], "norm": norm, **rec})
+            check_k1(rec, f"inside_cky {dtype} {b}x{n}x{d} norm={norm}")
 
     # -- the main path: parse requests through Trainer.parse + decode
     batches = [{"sentences": rs.randint(0, V, (B, N))} for _ in range(5)]
@@ -417,7 +482,8 @@ def parse_path(rs):
                    **bound(B, N, D, dtype), "library_ms": None,
                    "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
                    "cuda_launches_per_call": own_launches(by_kernel,
-                                                          "inside_cky")}
+                                                          "inside_cky"),
+                   "by_function": k1_by_function(by_kernel, B, N, D, dtype)}
             timing[dtype] = rec
             emit({"phase": "timing", "name": "inside_cky", "dtype": dtype,
                   "shape": [B, N, D], **rec})
@@ -451,9 +517,12 @@ def parse_path(rs):
         "bound_by": f32["bound_by"], "library_ms": None,
         "dtype": "float32", "shape": [B, N, D],
         "cuda_launches_per_call": f32["cuda_launches_per_call"],
+        "by_function": f32["by_function"],
         "bf16": {k: timing["bfloat16"][k]
-                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        | {"bp_agree": checked[(B, N, "bfloat16")]["bp_agree"]},
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "cuda_launches_per_call", "by_function")}
+        | {"bp_agree": checked[(B, N, "bfloat16")]["bp_agree"],
+           "max_abs_err": checked[(B, N, "bfloat16")]["max_abs_err"]},
     }
 
 

@@ -99,6 +99,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+// 16 bytes from global to shared, asynchronously, through L2 only;
+// `bytes` 0 writes zeros and reads nothing.  Both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// close this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Copy the box at element coordinates (x innermost, y) of the tensor that
 // `map` describes into shared memory at `dst`; completion is counted in

@@ -41,14 +41,16 @@ def supports(n: int, D: int, batch: int,
              compute_dtype: str = "float32") -> bool:
     """Whether the CUDA kernel takes this batch shape.
 
-    Needs at least one level (n >= 2); D a multiple of 4 (the GEMM tiles
-    load 4 values a thread); the combine block's shared memory
-    (2(n-1) + D + 128 floats) must fit the default 48 KB; row counts
-    must fit the kernel's 32-bit grid arithmetic.
+    Needs at least one level (n >= 2); D a multiple of 4 (the f32 GEMM
+    tiles copy 4 values at a time), or of 8 for bf16 (its weight tiles
+    arrive by TMA, whose rows are multiples of 16 bytes); the combine
+    block's shared memory (2(n-1) + D + 128 floats) must fit the default
+    48 KB; row counts must fit the kernel's 32-bit grid arithmetic.
     """
     if compute_dtype not in ("float32", "bfloat16"):
         return False
-    if n < 2 or D < 4 or D % 4 or batch < 1:
+    align = 8 if compute_dtype == "bfloat16" else 4
+    if n < 2 or D < align or D % align or batch < 1:
         return False
     if (2 * (n - 1) + D + _COMBINE_THREADS) * 4 > _SMEM_STATIC_LIMIT:
         return False
@@ -197,18 +199,26 @@ def fused_inside_cky(dp, h0: torch.Tensor, norm: str = "unit",
     bp = torch.empty((B, NC), dtype=torch.int32, device=dev)
     proj = torch.empty((B, NC, 3 * D), dtype=torch.float32, device=dev)
     rows = B * _max_rows_per_sentence(n)
-    h1 = torch.empty((rows, D), dtype=cdt, device=dev)
     hk = torch.empty((rows, D), dtype=cdt, device=dev)
-    wp = torch.empty((D, 3 * D), dtype=torch.float32, device=dev)
-    w1t = torch.empty((D, D), dtype=torch.float32, device=dev)
+    # the k-major weights in the compute dtype; bf16 builds h1 in registers
+    wp = torch.empty((D, 3 * D), dtype=cdt, device=dev)
+    w1t = torch.empty((D, D), dtype=cdt, device=dev)
+    h1 = (None if cdt == torch.bfloat16
+          else torch.empty((rows, D), dtype=cdt, device=dev))
+    # bases of TMA boxes, 16-byte cp.async copies and vector stores
+    for name, t in (("chart", chart), ("proj", proj), ("hk", hk), ("h1", h1),
+                    ("wp", wp), ("w1t", w1t)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.inside_cky_forward(
             h0.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), mat.data_ptr(), chart.data_ptr(), s.data_ptr(),
-            val.data_ptr(), bp.data_ptr(), proj.data_ptr(), h1.data_ptr(),
-            hk.data_ptr(), wp.data_ptr(), w1t.data_ptr(), B, n, D,
+            val.data_ptr(), bp.data_ptr(), proj.data_ptr(),
+            None if h1 is None else h1.data_ptr(), hk.data_ptr(),
+            wp.data_ptr(), w1t.data_ptr(), B, n, D,
             int(cdt == torch.bfloat16), int(norm == "unit"), stream)
     if err != 0:
         msg = lib.inside_cky_error_string(err).decode()

@@ -49,6 +49,24 @@ def test_plain_matches_jax_pallas_kernel(B, n):
     np.testing.assert_allclose(val.numpy(), np.asarray(want_val), atol=1e-4)
 
 
+@pytest.mark.parametrize("B,n", [(16, 5), (16, 7)])
+def test_plain_matches_jax_pallas_kernel_bf16(B, n):
+    """The bf16 semantics the card's bf16 kernels are held to: h1 and hk
+    rounded to bf16, products of bf16 values summed in f32, l M in f32."""
+    dp_j, dp_t, h0 = _jax_case(B, n, seed=3)
+    import jax.numpy as jnp
+
+    from cliora_tpu.ops.pallas_chart import fused_inside_cky_pallas
+
+    want_s, want_bp, want_val = fused_inside_cky_pallas(
+        dp_j, jnp.asarray(h0), compute_dtype="bfloat16")
+    s, bp, val = inside_cky.fused_inside_cky_plain(
+        dp_t, torch.from_numpy(h0), compute_dtype="bfloat16")
+    np.testing.assert_array_equal(bp.numpy(), np.asarray(want_bp))
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=1e-4)
+    np.testing.assert_allclose(val.numpy(), np.asarray(want_val), atol=1e-4)
+
+
 def _port_case(B, n, D, seed=0):
     dp = init_diora_params(torch.Generator().manual_seed(seed),
                            ModelConfig(size=D))
@@ -90,6 +108,9 @@ def test_supports():
     assert not inside_cky.supports(20, 400, 128, "float16")
     assert not inside_cky.supports(20, 20000, 8)       # combine smem
     assert not inside_cky.supports(20, 402, 8)         # 4-wide tile loads
+    assert inside_cky.supports(20, 404, 8, "float32")
+    assert not inside_cky.supports(20, 404, 8, "bfloat16")  # TMA rows
+    assert not inside_cky.supports(2, 4, 1, "bfloat16")
 
 
 @pytest.fixture
