@@ -604,35 +604,61 @@ fc1_wgmma(const __grid_constant__ CUtensorMap w1_map, const float* __restrict__ 
   wg_gemm<kFc1>(&w1_map, P, b0, b1, hk, g);
 }
 
+// four consecutive values (16-byte / 8-byte aligned) as floats, and back
+__device__ inline float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ inline float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ inline void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ inline void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
 // One block per target cell t = b * L + p: split scores (the bilinear dot
-// (l M) . r, one warp per split), softmax, CKY, weighted sum of hk, unit
-// norm, written into the chart.  Dynamic shared memory: 2N split floats,
-// D floats of h, CT floats of reduction buffer.
+// (l M) . r; warp w takes splits w, w + 4, ..., lane l columns 4 l + 128 c
+// with 16-byte (f32) or 8-byte (bf16) loads), softmax and CKY on one
+// thread in split order, the weighted sum of hk in split order with thread
+// i owning columns 4 i + 4 CT c, unit norm, written into the chart.  What
+// bounds it: the latency of those reads, a level's cells being about one
+// wave.  Dynamic shared memory: D floats of h, then 2N split floats.
 template <typename T>
 __global__ void __launch_bounds__(CT)
 combine(T* __restrict__ chart, float* __restrict__ s, float* __restrict__ val,
         int* __restrict__ bp, const T* __restrict__ hk,
         const float* __restrict__ P, int n, int D, int level, int unit_norm) {
-  extern __shared__ float sm[];
-  __shared__ float z_sh;
+  extern __shared__ float4 sm4[];
+  __shared__ float z_sh, red[CT / 32];
   const int N = level, L = n - level;
-  float* sk = sm;            // split scores, then exp(s_k - max)
-  float* pk = sm + N;        // CKY candidates v_l + v_r + s_k
-  float* hv = sm + 2 * N;    // aggregated h
-  float* red = hv + D;
+  float* hv = reinterpret_cast<float*>(sm4);  // aggregated h
+  float* sk = hv + D;        // split scores, then exp(s_k - max)
+  float* pk = sk + N;        // CKY candidates v_l + v_r + s_k
   const long long NC = (long long)n * (n + 1) / 2;
   const long long t = blockIdx.x;
   const int p = (int)(t % L);
   const long long cb = (t / L) * NC;
-  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int k = threadIdx.x / 32; k < N; k += CT / 32) {
+#pragma unroll 2
+  for (int k = warp; k < N; k += CT / 32) {
     const long long lc = cb + level_offset(n, k) + p;
     const long long rc = cb + level_offset(n, level - k - 1) + p + k + 1;
     const float* lm = P + lc * 3 * D + 2 * D;  // l M of the left child
     const T* r = chart + rc * D;
     float bil = 0.f;
-    for (int d = lane; d < D; d += 32) bil = fmaf(lm[d], load_f(r + d), bil);
+    for (int d = 4 * lane; d < D; d += 128) {
+      const float4 a = load4(lm + d), b = load4(r + d);
+      bil = fmaf(a.x, b.x, bil);
+      bil = fmaf(a.y, b.y, bil);
+      bil = fmaf(a.z, b.z, bil);
+      bil = fmaf(a.w, b.w, bil);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       bil += __shfl_xor_sync(0xffffffffu, bil, off);
@@ -669,29 +695,40 @@ combine(T* __restrict__ chart, float* __restrict__ s, float* __restrict__ val,
   __syncthreads();
 
   const float z = z_sh;
+  const T* hrow = hk + t * N * D;
   float ss = 0.f;
-  for (int d = threadIdx.x; d < D; d += CT) {
-    float acc = 0.f;
-    for (int k = 0; k < N; ++k)
-      acc += load_f(hk + (t * N + k) * D + d) * sk[k];
-    const float h = acc / z;
-    hv[d] = h;
-    ss += h * h;
+  for (int d = 4 * threadIdx.x; d < D; d += 4 * CT) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) {
+      const float4 h = load4(hrow + (long long)k * D + d);
+      const float e = sk[k];
+      acc.x += h.x * e;
+      acc.y += h.y * e;
+      acc.z += h.z * e;
+      acc.w += h.w * e;
+    }
+    const float4 h = make_float4(acc.x / z, acc.y / z, acc.z / z, acc.w / z);
+    store4(hv + d, h);
+    ss += h.x * h.x + h.y * h.y + h.z * h.z + h.w * h.w;
   }
   float inv = 1.f;
   if (unit_norm) {
-    red[threadIdx.x] = ss;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (lane == 0) red[warp] = ss;
     __syncthreads();
-    for (int w = CT / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-      __syncthreads();
-    }
-    inv = 1.f / sqrtf(fmaxf(red[0], 1e-16f));
+    float tot = 0.f;
+#pragma unroll
+    for (int w = 0; w < CT / 32; ++w) tot += red[w];
+    inv = 1.f / sqrtf(fmaxf(tot, 1e-16f));
   }
-  for (int d = threadIdx.x; d < D; d += CT)
-    chart[tc * D + d] = store_t<T>(hv[d] * inv);
+  for (int d = 4 * threadIdx.x; d < D; d += 4 * CT) {
+    const float4 h = load4(hv + d);
+    store4(chart + tc * D + d, make_float4(h.x * inv, h.y * inv, h.z * inv, h.w * inv));
+  }
 }
-
 
 unsigned tiles(long long x, int tile) { return (unsigned)((x + tile - 1) / tile); }
 
@@ -713,7 +750,7 @@ template <typename T>
 cudaError_t launch_combine(T* chart, float* s, float* val, int* bp, const T* hk,
                            const float* P, int B, int n, int D, int level,
                            int unit_norm, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * level + D + CT) * sizeof(float);
+  const size_t smem = (size_t)(D + 2 * level) * sizeof(float);
   combine<T><<<(unsigned)(B * (n - level)), CT, smem, stream>>>(
       chart, s, val, bp, hk, P, n, D, level, unit_norm);
   return cudaGetLastError();

@@ -32,7 +32,7 @@ from cliora_tpu_torch.chart.offsets import level_offsets, ncells
 # ran on the card); the plain version never counts.
 launches = 0
 
-_COMBINE_THREADS = 128          # CT in csrc/inside_cky.cu
+_SMEM_SPARE_FLOATS = 128        # room for combine's static shared memory
 _INT32_MAX = 2 ** 31 - 1
 _SMEM_STATIC_LIMIT = 48 * 1024  # combine's dynamic shared memory, no opt-in
 
@@ -44,15 +44,16 @@ def supports(n: int, D: int, batch: int,
     Needs at least one level (n >= 2); D a multiple of 4 (the f32 GEMM
     tiles copy 4 values at a time), or of 8 for bf16 (its weight tiles
     arrive by TMA, whose rows are multiples of 16 bytes); the combine
-    block's shared memory (2(n-1) + D + 128 floats) must fit the default
-    48 KB; row counts must fit the kernel's 32-bit grid arithmetic.
+    block's shared memory (D + 2(n-1) floats, with 128 to spare) must
+    fit the default 48 KB; row counts must fit the kernel's 32-bit grid
+    arithmetic.
     """
     if compute_dtype not in ("float32", "bfloat16"):
         return False
     align = 8 if compute_dtype == "bfloat16" else 4
     if n < 2 or D < align or D % align or batch < 1:
         return False
-    if (2 * (n - 1) + D + _COMBINE_THREADS) * 4 > _SMEM_STATIC_LIMIT:
+    if (2 * (n - 1) + D + _SMEM_SPARE_FLOATS) * 4 > _SMEM_STATIC_LIMIT:
         return False
     return batch * _max_rows_per_sentence(n) < _INT32_MAX
 
