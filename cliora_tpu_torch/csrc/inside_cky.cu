@@ -38,14 +38,16 @@
 //    CUDA cores in simt_gemm -- 128 x 80 block tiles (80 divides D = 400
 //    and 3D = 1200: no padded columns), 8 x 4 outputs a thread, 320
 //    threads at 96 registers (20 warps an SM; 8 x 8 outputs a thread left
-//    10 and ran slower), a 4-stage ring of 16-deep shared-memory tiles
-//    filled by 16-byte cp.async, one barrier a stage.  What holds them is
-//    the FMA issue rate inside a wave and the wave tails of small levels,
-//    not the loads: the ring measured no faster than the register-staged
-//    single buffer it replaced (PERF.md, PR 6).  fc0 forms h1 = relu((P_l + P_r) + b0) in its own
-//    elementwise pass (a GEMM loader that built it on the fly held too
-//    many loads in flight per thread and ran fc1 at half the speed).
-//    4n - 2 launches a call.
+//    10 and ran slower), a 2-stage ring of 16-deep shared-memory tiles
+//    filled by 16-byte cp.async (the next stage lands while one
+//    multiplies; 3 or 4 stages ran fc1 slower), one barrier a stage.
+//    What holds them is the FMA issue rate inside a wave and the wave
+//    tails of small levels, not the loads: no loader variant ran project
+//    faster than the register-staged single buffer it replaced (PERF.md,
+//    PR 6).  fc0 forms h1 = relu((P_l + P_r) + b0) in its own elementwise
+//    pass (a GEMM loader that built it on the fly held too many loads in
+//    flight per thread and ran fc1 at half the speed).  4n - 2 launches a
+//    call.
 //  * bf16 (the TPU kernel's rounding: h1 and hk rounded to bf16, products
 //    of bf16 values summed in f32, l M in f32): project and fc1 run on
 //    the tensor cores in wg_gemm -- wgmma m64n200k16 with the A operand
@@ -57,8 +59,9 @@
 //    buffer are gone; what bounds it is the L2 traffic of those rows
 //    (8 D bytes a row and column tile), not its 2 D^2 FLOP a row.  3n - 1
 //    launches a call.
-//  * combine runs one block per target cell.  Every reduction runs in a
-//    fixed order (no atomics), so results repeat bit for bit.
+//  * combine runs one block per target cell, with 16-byte (f32) or 8-byte
+//    (bf16) loads of l M, r and hk.  Every reduction runs in a fixed order
+//    (no atomics), so results repeat bit for bit.
 //
 // Plain C interface, loaded with ctypes (ops/inside_cky.py).  The caller
 // allocates every buffer; kernels run on the caller's stream; each launch
@@ -100,7 +103,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 constexpr int FBM = 128;   // rows per tile
 constexpr int FBN = 80;    // columns per tile: 400 = 5 x 80, 1200 = 15 x 80
 constexpr int FBK = 16;    // k per stage
-constexpr int FSTAGES = 4;
+constexpr int FSTAGES = 2;
 constexpr int FTM = 8;     // rows per thread: ty + 16 i
 constexpr int FTN = 4;     // columns per thread: 4 tx .. 4 tx + 3
 constexpr int FTX = FBN / FTN, FTY = FBM / FTM;
