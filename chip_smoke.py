@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (cliora_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds every CUDA kernel of the port's paths from the sources in this
 checkout (one nvcc per source, started together), holds each against its
@@ -26,11 +26,18 @@ timing breaks down by device function (project, fc0, fc1, combine: ms,
 launches, TFLOP/s or GB/s).  K2-K4
 are checked at the step's calls (VG f32, contrastive bf16 and f32), an
 odd shape and the edges of the Hopper tiles, and timed at the three
-calls; the two kernels redesigned for Hopper (K2 on wgmma + TMA, K4 as a
-one-hot GEMM on the tensor cores) are also timed against a
-``torch.matmul`` of the same bf16 operands (the product alone), K4 on
-the all-ties argmax of init, and K4's f32 route against the bf16 GEMM on
-a two-term split of the span.
+calls; K2 (wgmma + TMA) and K4 (a one-hot GEMM on the tensor cores) are
+also timed against a ``torch.matmul`` of the same bf16 operands (the
+product alone), K3 and K4 on the all-ties argmax of init against random
+argmax, K4's f32 route against the bf16 GEMM on a two-term split of the
+span, and K3 beside its shared-memory floor and the image segments it
+took.
+
+With ``--parent DIR`` (a copy of an earlier commit's files, e.g. the
+parent's ``git archive``), it also runs that tree's K3 and one f32 step's
+gradients, in a child process started in DIR, on the inputs of this run,
+and reports whether dspan at the f32 contrastive and VG calls and the
+step's gradient norm have the same bits, and the largest difference.
 
 Prints one JSON object per phase, then the ``kernels`` summary, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -39,6 +46,7 @@ before the last line; without a CUDA device it exits non-zero at once.
 No check falls back to the CPU.
 """
 
+import argparse
 import dataclasses
 import json
 import math
@@ -46,6 +54,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,6 +106,8 @@ CPU_LOSS_RTOL = 1e-5     # a small f32 step, card vs CPU
 # tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# Hopper shared memory: 128 bytes a clock on each of the H100 SXM's 132 SMs
+SMS, SMEM_BYTES_PER_CLOCK = 132, 128
 SOURCES = ("inside_cky", "span_region")
 KERNELS = {
     "inside_cky": {
@@ -129,7 +140,7 @@ K1_FUNCS = re.compile(r"::(prep_weights|init_leaves|combine|fc0|project_simt|"
 DEVICE_FUNCS = {
     "inside_cky": K1_FUNCS,
     "span_region_fwd": re.compile(r"::k2_fwd_(bf16<|f32\()"),
-    "span_region_dspan": re.compile(r"::k3_dspan<"),
+    "span_region_dspan": re.compile(r"::k3_(dspan|reduce)<"),
     "span_region_dobj": re.compile(r"::k4_(dobj_gemm\(|dobj_f32<|reduce\()"),
 }
 SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
@@ -153,6 +164,14 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def ptxas_summary(lines):
@@ -203,8 +222,8 @@ def sr_bound(name, span, obj):
     the span dtype; reads span and the span-dtype obj, writes max and
     argmax (A, C, M) f32 + int32.  K3: 2 A M C D FLOP of f32 FMA on the
     CUDA cores; reads g, argmax and f32 obj, writes dspan in the span
-    dtype.  K4: the same FLOP; reads span, g and argmax, writes f32
-    dobj."""
+    dtype; beside it the shared-memory floor of its gather formulation.
+    K4: the same FLOP; reads span, g and argmax, writes f32 dobj."""
     A, M, Dd = span.shape
     C, Rr, _ = obj.shape
     es = span.element_size()
@@ -216,10 +235,22 @@ def sr_bound(name, span, obj):
                         PEAK_FLOPS[dtype])
     flops = 2 * A * M * C * Dd
     if name == "span_region_dspan":
-        return roofline(flops, gam + 4 * C * Rr * Dd + es * A * M * Dd,
-                        PEAK_FLOPS["float32"])
+        return (roofline(flops, gam + 4 * C * Rr * Dd + es * A * M * Dd,
+                         PEAK_FLOPS["float32"])
+                | k3_smem_floor(A, M, C, Dd))
     return roofline(flops, es * A * M * Dd + gam + 4 * C * Rr * Dd,
                     PEAK_FLOPS["float32"])
+
+
+def k3_smem_floor(A, M, C, Dd):
+    """K3's floor in its own formulation: the A M C D f32 obj entries it
+    gathers, each read once from shared memory, at the shared-memory rate
+    of the card's maximum SM clock."""
+    nbytes = 4 * A * M * C * Dd
+    clock = max_sm_clock_hz()
+    return {"smem_gather_bytes": nbytes, "sm_clock_max_hz": clock,
+            "smem_floor_ms": nbytes / (SMS * SMEM_BYTES_PER_CLOCK * clock)
+            * 1e3}
 
 
 def cuda_ms(fn, reps=10, runs=5):
@@ -577,6 +608,16 @@ def span_region_vs_plain(span, obj, g):
                                          torch.float32)
     rec["zero_g_dobj_zero"] = bool(torch.equal(zdobj,
                                                torch.zeros_like(zdobj)))
+    # K3 on the all-ties argmax with nonzero g
+    zdspan = span_region.span_region_dspan(obj, zam, g, dt)
+    pzdspan = span_region.span_region_dspan_plain(obj, zam, g, dt)
+    rec["ties_dspan_max_abs_err"] = (zdspan.float()
+                                     - pzdspan.float()).abs().max().item()
+    rec["ties_dspan_scale"] = max(1.0, pzdspan.float().abs().max().item())
+    rec["ties_dspan_bitwise_repeat"] = bool(torch.equal(
+        zdspan, span_region.span_region_dspan(obj, zam, g, dt)))
+    rec["dspan_segments"] = span_region.dspan_segments(
+        span.shape[0] * span.shape[1], obj.shape[0], obj.shape[2])
     return rec
 
 
@@ -588,17 +629,22 @@ def check_span_region(rec, what, bf16):
               <= SR_BF16_MAX_RTOL * rec["fwd_scale"],
               f"{what}: K2 disagrees with plain")
         check(rec["dspan_max_abs_err"]
-              <= SR_BF16_DSPAN_RTOL * rec["dspan_scale"],
+              <= SR_BF16_DSPAN_RTOL * rec["dspan_scale"]
+              and rec["ties_dspan_max_abs_err"]
+              <= SR_BF16_DSPAN_RTOL * rec["ties_dspan_scale"],
               f"{what}: K3 disagrees with plain")
     else:
         check(rec["fwd_max_abs_err"] <= SR_F32_RTOL * rec["fwd_scale"]
               and rec["argmax_equal_off_ties"],
               f"{what}: K2 disagrees with plain")
-        check(rec["dspan_max_abs_err"] <= SR_F32_RTOL * rec["dspan_scale"],
+        check(rec["dspan_max_abs_err"] <= SR_F32_RTOL * rec["dspan_scale"]
+              and rec["ties_dspan_max_abs_err"]
+              <= SR_F32_RTOL * rec["ties_dspan_scale"],
               f"{what}: K3 disagrees with plain")
     check(rec["dobj_max_abs_err"] <= SR_F32_RTOL * rec["dobj_scale"],
           f"{what}: K4 disagrees with plain")
-    check(rec["dspan_bitwise_repeat"] and rec["dobj_bitwise_repeat"],
+    check(rec["dspan_bitwise_repeat"] and rec["dobj_bitwise_repeat"]
+          and rec["ties_dspan_bitwise_repeat"],
           f"{what}: K3/K4 not bitwise repeatable")
     check(rec["ties_argmax_zero"], f"{what}: all-ties argmax is not 0")
     check(rec["zero_g_dobj_zero"], f"{what}: g all zero, dobj not zero")
@@ -774,9 +820,14 @@ def train_cpu_reference(rs):
 
 def span_region_timing(span, obj, g, am):
     """Each of K2-K4 against its plain version on the same inputs: plain,
-    kernel, kernel, plain; and its CUDA launches per call."""
+    kernel, kernel, plain; and its CUDA launches per call (K3 and K4 with
+    the segment count they took)."""
     dt = span.dtype
-    Rr = obj.shape[1]
+    A, M, Dd = span.shape
+    C, Rr, _ = obj.shape
+    segments = {"span_region_dspan": span_region.dspan_segments(A * M, C, Dd),
+                "span_region_dobj": span_region.dobj_segments(
+                    A * M, C, Rr, Dd, dt == torch.bfloat16)}
     calls = {
         "span_region_fwd": (
             lambda: span_region.span_region_fwd(span, obj),
@@ -801,6 +852,8 @@ def span_region_timing(span, obj, g, am):
                      "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
                      "cuda_launches_per_call": own_launches(by_kernel, name),
                      "profiled_device_ms": by_kernel}
+        if name in segments:
+            out[name]["segments"] = segments[name]
         emit({"phase": "timing", "name": name, "dtype": str(dt),
               "span": list(span.shape), "obj": list(obj.shape),
               **out[name]})
@@ -808,12 +861,12 @@ def span_region_timing(span, obj, g, am):
 
 
 def redesign_timing(span, obj, g):
-    """What the kernels redesigned for Hopper (K2, K4) are held to, at the
-    bf16 contrastive call: each one's ``gemm_yardstick_ms``, a
+    """What the kernels redesigned for Hopper (K2, K3, K4) are held to, at
+    the bf16 contrastive call: K2's and K4's ``gemm_yardstick_ms``, a
     ``torch.matmul`` of the same bf16 operands timed for the product alone
     (K2: span x obj^T, no max; K4: a dense bf16 W, built outside the timed
-    region, x span, one g term); K4 on the all-ties argmax of a zero obj
-    against random argmax, in turns; K4's dense-formulation bound."""
+    region, x span, one g term); K3 and K4 on the all-ties argmax of a zero
+    obj against random argmax, in turns; K4's dense-formulation bound."""
     A, M, Dd = span.shape
     C, Rr, _ = obj.shape
     dev = span.device
@@ -834,9 +887,16 @@ def redesign_timing(span, obj, g):
         return lambda: span_region.span_region_dobj(span, a, g, Rr,
                                                     torch.float32)
 
-    r1, t1, t2, r2 = (cuda_ms(k4(am)), cuda_ms(k4(am0)), cuda_ms(k4(am0)),
-                      cuda_ms(k4(am)))
-    rand_ms, ties_ms = statistics.median(r1 + r2), statistics.median(t1 + t2)
+    def k3(a):
+        return lambda: span_region.span_region_dspan(obj, a, g, span.dtype)
+
+    def ties_vs_random(kern):
+        r1, t1, t2, r2 = (cuda_ms(kern(am)), cuda_ms(kern(am0)),
+                          cuda_ms(kern(am0)), cuda_ms(kern(am)))
+        return statistics.median(r1 + r2), statistics.median(t1 + t2)
+
+    rand_ms, ties_ms = ties_vs_random(k4)
+    k3_rand_ms, k3_ties_ms = ties_vs_random(k3)
     dense = 2 * (2 * C * Rr * A * M * Dd)     # two bf16 terms of g
     out = {
         "span_region_fwd": {
@@ -854,6 +914,9 @@ def redesign_timing(span, obj, g):
             "g_terms": 2, "flop_dense_formulation": dense,
             "bound_ms_dense_formulation": dense / PEAK_FLOPS["bfloat16"]
             * 1e3},
+        "span_region_dspan": {
+            "random_argmax_ms": k3_rand_ms, "all_ties_ms": k3_ties_ms,
+            "all_ties_over_random": k3_ties_ms / k3_rand_ms},
     }
     for name, rec in out.items():
         emit({"phase": "redesign_timing", "name": name, **rec})
@@ -901,10 +964,93 @@ def f32_split_timing(span, obj, g):
     return rec
 
 
-def train_path(rs):
+# Run in a child process started in an earlier tree (``--parent``): that
+# tree's K3 and one f32 step's gradients on this run's inputs
+PARENT_CHILD = r"""
+import sys
+import torch
+import chip_smoke as cs
+from cliora_tpu_torch.ops import span_region
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+data = torch.load(sys.argv[1])
+out = {}
+for tag in ("contrastive_f32", "vg"):
+    obj, am, g = (data[f"{tag}/{k}"].cuda() for k in ("obj", "am", "g"))
+    out["dspan/" + tag] = span_region.span_region_dspan(
+        obj, am, g, torch.float32).cpu()
+flat = {k[5:]: v.numpy() for k, v in data.items() if k.startswith("flat/")}
+batch = {k[6:]: v.numpy() for k, v in data.items() if k.startswith("batch/")}
+_, grads = cs.step_grads(*cs.train_configs("float32", attn_dropout=0.0),
+                         flat, batch, "cuda")
+out.update({"grad/" + k: v.cpu() for k, v in grads.items()})
+torch.save(out, sys.argv[2])
+"""
+
+
+def parent_compare(parent, inputs, rs):
+    """K3 at the f32 contrastive and VG calls, and the gradients of one f32
+    step (dropout off, perturbed weights), here and in the tree ``parent``
+    on the same inputs: equal bits or the largest difference."""
+    data, here = {}, {}
+    for tag in ("contrastive_f32", "vg"):
+        span, obj, g = inputs[tag]
+        _, am = span_region.span_region_fwd(span, obj)
+        data.update({f"{tag}/obj": obj.cpu(), f"{tag}/am": am.cpu(),
+                     f"{tag}/g": g.cpu()})
+        here["dspan/" + tag] = span_region.span_region_dspan(
+            obj, am, g, torch.float32).cpu()
+    base = Trainer.build(*train_configs("float32"), V, seed=SEED + 3,
+                         device="cpu")
+    flat = perturbed(base.params, rs)
+    del base
+    batch = train_batch(rs, B, N, V, K_NEG, R, F)
+    data.update({"flat/" + k: torch.from_numpy(v) for k, v in flat.items()})
+    data.update({"batch/" + k: torch.from_numpy(np.asarray(v))
+                 for k, v in batch.items()})
+    _, grads = step_grads(*train_configs("float32", attn_dropout=0.0), flat,
+                          batch, "cuda")
+    here.update({"grad/" + k: v.cpu() for k, v in grads.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, outp = f"{tmp}/inputs.pt", f"{tmp}/parent.pt"
+        torch.save(data, inp)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", PARENT_CHILD, inp, outp],
+                       cwd=parent, check=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        theirs = torch.load(outp)
+
+    def norm(d):
+        return math.sqrt(sum(float(v.double().pow(2).sum())
+                             for k, v in d.items() if k.startswith("grad/")))
+
+    rec = {"phase": "parent_compare", "parent": parent,
+           "child_seconds": child_s}
+    for tag in ("contrastive_f32", "vg"):
+        a, b = here["dspan/" + tag], theirs["dspan/" + tag]
+        span, obj, _ = inputs[tag]
+        rec[tag] = {"dspan_equal_bits": bool(torch.equal(a, b)),
+                    "dspan_max_abs_diff": (a - b).abs().max().item(),
+                    "dspan_scale": b.abs().max().item(),
+                    "segments": span_region.dspan_segments(
+                        span.shape[0] * span.shape[1], obj.shape[0],
+                        obj.shape[2])}
+    gk = [k for k in here if k.startswith("grad/")]
+    rec["f32_step"] = {
+        "grad_norm": norm(here), "grad_norm_parent": norm(theirs),
+        "grad_norm_equal_bits": norm(here) == norm(theirs),
+        "grads_equal_bits": sum(torch.equal(here[k], theirs[k]) for k in gk),
+        "grads": len(gk),
+        "grad_max_abs_diff": max((here[k] - theirs[k]).abs().max().item()
+                                 for k in gk)}
+    emit(rec)
+    return rec
+
+
+def train_path(rs, parent=None):
     """K2-K4 against their plain versions, the train steps, the route and
-    CPU comparisons, timing.  Returns the K2-K4 entries of the kernels
-    line."""
+    CPU comparisons, timing, and with ``parent`` the comparison with an
+    earlier tree.  Returns the K2-K4 entries of the kernels line."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -924,7 +1070,9 @@ def train_path(rs):
               "edge_r144": (5, 7, 3, 144, D, None),
               "edge_d16": (4, 9, 6, R, 16, None),
               "edge_ktail": (3, 50, 5, R, 72, None),
-              "edge_segments": (64, 100, 16, R, D, None)}
+              "edge_segments": (64, 100, 16, R, D, None),
+              # the widest D supports() takes: 32 K3 slices
+              "edge_d1024": (6, 30, 9, R, 1024, None)}
     checked, inputs = {}, {}
     for tag, (a, m, c, r, d, only) in shapes.items():
         for dtype in ((only,) if only else ("float32", "bfloat16")):
@@ -965,6 +1113,8 @@ def train_path(rs):
         timing[tag] = span_region_timing(span, obj, g, am)
     redesign = redesign_timing(*inputs["contrastive"])
     split = f32_split_timing(*inputs["contrastive_f32"])
+    if parent:
+        parent_compare(parent, inputs, rs)
     err_keys = {"span_region_fwd": "fwd_max_abs_err",
                 "span_region_dspan": "dspan_max_abs_err",
                 "span_region_dobj": "dobj_max_abs_err"}
@@ -985,10 +1135,12 @@ def train_path(rs):
                 dt: train[dt]["launches_per_step_profiled"][name]
                 for dt in train},
         }
+        extra = ("segments", "smem_floor_ms", "sm_clock_max_hz")
+        entry.update({k: main[k] for k in extra if k in main})
         for tag in ("contrastive_f32", "vg"):
             t = timing[tag][name]
             entry[tag] = ({k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by")}
+                                              "bound_by") + extra if k in t}
                           | {"max_abs_err": checked[(tag, "float32")][err_key],
                              "span": list(inputs[tag][0].shape)})
         entry.update(redesign.get(name, {}))
@@ -999,6 +1151,11 @@ def train_path(rs):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an earlier tree to compare K3 and an f32 step's "
+                         "gradients with")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
@@ -1034,7 +1191,7 @@ def main():
     rs = np.random.RandomState(SEED)
     entries = [parse_path(rs)]
     torch.cuda.empty_cache()
-    entries += train_path(rs)
+    entries += train_path(rs, args.parent)
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

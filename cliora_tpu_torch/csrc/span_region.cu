@@ -39,12 +39,28 @@
 //  argmax is 0, as in the JAX package.
 //
 // K3.  The TPU multiplied a g-weighted one-hot (tile x C*R) by obj on the
-// MXU.  Here each warp owns one span row (a, m) and gathers the argmax row
-// obj[c, am] directly for c = 0, 1, ..., C-1 in that order, 4 columns a
-// lane (16-byte loads), f32 accumulators in registers: deterministic by
-// construction.  What bounds it: the gathered obj rows (A M C D floats,
-// 5.5 GB at the contrastive call, read through L1/L2: obj itself is 7.4 MB),
-// not the 2 A M C D FLOP.
+// MXU.  Here the gather is served from shared memory: k3_dspan.  A block
+// of 128 threads owns a tile of 256 flat span rows and a 32-column slice
+// of D, and walks its images in a 4-stage ring of cp.async copies: the
+// image's R x 32 slice of obj (16-byte copies, one 128-byte row a region)
+// and the tile's argmax and g (8-byte copies of two rows where M is even),
+// the next images' copies in flight while the current one's gathers run.
+// Each thread owns two rows and all eight column quads of each, in
+// float4 accumulators; per row and image it reads the argmax and g once
+// and then the region's eight quads, quad (t ^ s) % 8 at step s, so the
+// eight lanes of a quarter warp read eight distinct bank groups whatever
+// regions their rows gather: no bank conflicts and a time that does not
+// depend on the argmax (all-ties argmax 0 at init included).  Each output
+// sums its images in increasing order with one fmaf an image from 0, as
+// the plain gather does; where the shape leaves too few blocks to fill
+// the card (the VG call), the images are cut into a shape-determined
+// number of segments, each block writes its segment's f32 partial sums,
+// and k3_reduce adds them in segment order and rounds once to the span
+// dtype.  No float atomics: two calls give the same bits.  What bounds
+// it: shared-memory reads, 16 bytes per 4 FMAs (A M C D floats gathered,
+// 5.5 GB at the contrastive call) and the staging writes beside them, not
+// the 2 A M C D FLOP; staging re-reads obj once per row tile and the
+// argmax and g once per D slice, from L2, where obj stays (7.4 MB).
 //
 // K4.  dobj = W . span as a GEMM over the A*M span rows, with
 // W[c R + r, a M + m] = g[a, c, m] [am[a, c, m] = r] -- the TPU kernel's
@@ -104,10 +120,18 @@ __device__ inline float4 fma4(float a, float4 x, float4 acc) {
                      fmaf(a, x.z, acc.z), fmaf(a, x.w, acc.w));
 }
 
-template <typename T> __device__ inline T store_t(float x);
-template <> __device__ inline float store_t<float>(float x) { return x; }
-template <> __device__ inline __nv_bfloat16 store_t<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+// four consecutive entries of a row: 16 bytes of f32 or 8 of bf16 (each
+// rounded to nearest even, as torch's .to())
+__device__ inline void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ inline void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -454,53 +478,150 @@ k2_fwd_bf16(const __grid_constant__ CUtensorMap span_map,
 
 // ---------------------------------------------------------------- K3 ----
 
-constexpr int K3_WARPS = 8;     // span rows per block, one a warp
-constexpr int K3_MAXQ = 8;      // D <= 128 * K3_MAXQ (4 columns a lane)
+constexpr int K3_THREADS = 128;
+constexpr int K3_Q = 8;                          // column quads a slice
+constexpr int K3_DS = 4 * K3_Q;                  // D columns a slice
+constexpr int K3_KR = 2;                         // tile rows a thread
+constexpr int K3_ROWS = K3_THREADS * K3_KR;      // tile rows (256)
+constexpr int K3_STAGES = 4;
 
-template <typename TS>
-__device__ inline void store4(TS* p, float4 v) {
-  p[0] = store_t<TS>(v.x);
-  p[1] = store_t<TS>(v.y);
-  p[2] = store_t<TS>(v.z);
-  p[3] = store_t<TS>(v.w);
+size_t k3_smem(int R) {
+  return (size_t)K3_STAGES * (R * K3_Q * sizeof(float4) + K3_ROWS * 8) + 128;
 }
 
-// One warp per span row (a, m); lane l owns columns 4l + 128q (q < 8).
-template <typename TS>
-__global__ void __launch_bounds__(32 * K3_WARPS)
+// 8 bytes from global to shared, asynchronously; `bytes` 0 writes zeros
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   sm90::smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Grid: (D slices of K3_DS, row tiles of K3_ROWS, image segments).
+// Dynamic shared memory: k3_smem(R), a ring of K3_STAGES stages, each an
+// obj slice (R rows of K3_Q float4s, 128 bytes a row) and the tile's
+// argmax and g.  Thread t owns tile rows t + 128 k (k < K3_KR), all K3_Q
+// quads of each; at step s it reads quad (t ^ s) % 8, so the eight lanes
+// of a quarter warp read eight distinct 16-byte bank groups whatever rows
+// they gather.  EVEN (M even): argmax and g of two rows come in one 8-byte
+// copy.  Segment z sums images [C z / segs, C (z + 1) / segs); with one
+// segment it writes dspan, else its f32 partial sums to partial[z].
+template <typename TS, bool EVEN>
+__global__ void __launch_bounds__(K3_THREADS, 4)
 k3_dspan(const float* __restrict__ obj, const int* __restrict__ am,
-         const float* __restrict__ g, TS* __restrict__ dspan, int A, int M,
-         int C, int R, int D) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * K3_WARPS + threadIdx.x / 32;
-  if (row >= (long long)A * M) return;  // whole warp
-  const long long a = row / M, m = row % M;
-  float4 acc[K3_MAXQ];
+         const float* __restrict__ g, TS* __restrict__ dspan,
+         float* __restrict__ partial, int A, int M, int C, int R, int D,
+         int segs) {
+  extern __shared__ float4 k3_smem_raw[];
+  // 128-byte-aligned stages: a staged obj row is one pass over the banks
+  float4* objs = reinterpret_cast<float4*>(
+      (reinterpret_cast<uintptr_t>(k3_smem_raw) + 127) & ~uintptr_t(127));
+  const int so = R * K3_Q;                  // float4s of an obj stage
+  int* ams = reinterpret_cast<int*>(objs + K3_STAGES * so);
+  float* gs = reinterpret_cast<float*>(ams + K3_STAGES * K3_ROWS);
+  const int t = threadIdx.x, rho = t % K3_Q;
+  const long long rows = (long long)A * M;
+  const long long row0 = (long long)blockIdx.y * K3_ROWS;
+  const int d0 = blockIdx.x * K3_DS;
+  const int c0 = (int)((long long)C * blockIdx.z / segs);
+  const int n = (int)((long long)C * (blockIdx.z + 1) / segs) - c0;
+
+  // this thread stages tile rows 2t and 2t + 1: base is the offset of
+  // row 2t's (a, 0, m) in g and am (-1 past the end), step the distance
+  // to row 2t + 1's (1 within a span)
+  static_assert(K3_ROWS == 2 * K3_THREADS, "two staged rows a thread");
+  const long long srow = row0 + 2 * t;
+  int base = -1, step = 1;
+  if (srow < rows) {
+    const int a = (int)(srow / M), m = (int)(srow % M);
+    base = a * C * M + m;
+    if (m + 1 == M) step = C * M - m;
+  }
+  const bool two = srow + 1 < rows;
+  auto stage_in = [&](int c, int s) {
+    float4* od = objs + s * so;
+    const float* src = obj + (long long)c * R * D + d0;
+    for (int e = t; e < so; e += K3_THREADS) {
+      const int r = e / K3_Q, j = e % K3_Q;
+      const bool ok = d0 + 4 * j < D;
+      sm90::cp_async16(od + e, ok ? src + (long long)r * D + 4 * j : obj,
+                       ok ? 16 : 0);
+    }
+    int* ad = ams + s * K3_ROWS + 2 * t;
+    float* gd = gs + s * K3_ROWS + 2 * t;
+    const int off = base >= 0 ? base + c * M : 0;
+    if (EVEN) {  // both rows in one span, or both past the end
+      cp_async8(ad, am + off, base >= 0 ? 8 : 0);
+      cp_async8(gd, g + off, base >= 0 ? 8 : 0);
+    } else {
+      sm90::cp_async4(ad, am + off, base >= 0 ? 4 : 0);
+      sm90::cp_async4(gd, g + off, base >= 0 ? 4 : 0);
+      sm90::cp_async4(ad + 1, am + (two ? off + step : 0), two ? 4 : 0);
+      sm90::cp_async4(gd + 1, g + (two ? off + step : 0), two ? 4 : 0);
+    }
+  };
+
+  float4 acc[K3_KR][K3_Q];
 #pragma unroll
-  for (int q = 0; q < K3_MAXQ; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    // lane i holds g and am of image c0 + i; broadcast one at a time
-    const int cl = c0 + lane;
-    const long long gi = (a * C + cl) * M + m;
-    const float gl = cl < C ? g[gi] : 0.f;
-    const int al = cl < C ? am[gi] : 0;
-    const int nc = min(32, C - c0);
-    for (int i = 0; i < nc; ++i) {
-      const float gv = __shfl_sync(0xffffffffu, gl, i);
-      const int r = __shfl_sync(0xffffffffu, al, i);
-      const float* orow = obj + ((long long)(c0 + i) * R + r) * D;
+  for (int k = 0; k < K3_KR; ++k)
 #pragma unroll
-      for (int q = 0; q < K3_MAXQ; ++q) {
-        const int d = 128 * q + 4 * lane;
-        if (d < D) acc[q] = fma4(gv, load4(orow + d), acc[q]);
-      }
+    for (int s = 0; s < K3_Q; ++s) acc[k][s] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int p = 0; p < K3_STAGES - 1; ++p) {
+    if (p < n) stage_in(c0 + p, p);
+    sm90::cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    // image i has landed for every thread, and every thread is past image
+    // i - 1, whose stage the copy of image i + K3_STAGES - 1 reuses
+    sm90::cp_async_wait<K3_STAGES - 2>();
+    __syncthreads();
+    if (i + K3_STAGES - 1 < n)
+      stage_in(c0 + i + K3_STAGES - 1, (i + K3_STAGES - 1) % K3_STAGES);
+    sm90::cp_async_commit();
+    const int st = i % K3_STAGES;
+    const float4* ob = objs + st * so;
+#pragma unroll
+    for (int k = 0; k < K3_KR; ++k) {
+      const int r = ams[st * K3_ROWS + t + K3_THREADS * k];
+      const float gv = gs[st * K3_ROWS + t + K3_THREADS * k];
+      const float4* orow = ob + r * K3_Q;
+#pragma unroll
+      for (int s = 0; s < K3_Q; ++s) acc[k][s] = fma4(gv, orow[rho ^ s], acc[k][s]);
     }
   }
+
 #pragma unroll
-  for (int q = 0; q < K3_MAXQ; ++q) {
-    const int d = 128 * q + 4 * lane;
-    if (d < D) store4(dspan + row * D + d, acc[q]);
+  for (int k = 0; k < K3_KR; ++k) {
+    const long long row = row0 + t + K3_THREADS * k;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int s = 0; s < K3_Q; ++s) {
+      const int d = d0 + 4 * (rho ^ s);
+      if (d >= D) continue;
+      if (segs == 1)
+        store4(dspan + row * D + d, acc[k][s]);
+      else
+        *reinterpret_cast<float4*>(
+            partial + ((long long)blockIdx.z * rows + row) * D + d) = acc[k][s];
+    }
   }
+}
+
+// dspan[i] = the span-dtype rounding of the sum over segments s, in order,
+// of partial[s][i]; four consecutive entries a thread.
+template <typename TS>
+__global__ void k3_reduce(const float* __restrict__ partial,
+                          TS* __restrict__ dspan, long long n, int segs) {
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float4 s = load4(partial + i);
+  for (int k = 1; k < segs; ++k) {
+    const float4 v = load4(partial + (long long)k * n + i);
+    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  store4(dspan + i, s);
 }
 
 // ---------------------------------------------------------------- K4 ----
@@ -764,6 +885,31 @@ unsigned tiles(long long x, long long tile) {
   return (unsigned)((x + tile - 1) / tile);
 }
 
+// k3_dspan, and k3_reduce after it when the images are cut into segments
+template <typename TS>
+cudaError_t k3_launch(const float* obj, const int* am, const float* g,
+                      float* partial, TS* dspan, int A, int M, int C, int R,
+                      int D, int segs, cudaStream_t st) {
+  const long long rows = (long long)A * M;
+  const dim3 grid(tiles(D, K3_DS), tiles(rows, K3_ROWS), (unsigned)segs);
+  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
+  const size_t smem = k3_smem(R);
+  // two rows' argmax and g a copy where rows pair up within a span and
+  // the copies stay 8-byte aligned
+  const uintptr_t ag = reinterpret_cast<uintptr_t>(am) | reinterpret_cast<uintptr_t>(g);
+  const bool even = M % 2 == 0 && ag % 8 == 0;
+  const auto kern = even ? k3_dspan<TS, true> : k3_dspan<TS, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, K3_THREADS, smem, st>>>(obj, am, g, dspan, partial, A, M, C, R,
+                                        D, segs);
+  if ((err = cudaGetLastError()) != cudaSuccess || segs == 1) return err;
+  const long long n = rows * D;
+  k3_reduce<TS><<<tiles(n / 4, 256), 256, 0, st>>>(partial, dspan, n, segs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -801,23 +947,26 @@ int span_region_fwd(const void* span, const void* obj, float* mx, int* am,
   return (int)cudaGetLastError();
 }
 
-// obj (C, R, D) f32; am (A, C, M) int32; g (A, C, M) f32; dspan (A, M, D)
-// bf16 if bf16, else f32.  Needs D % 4 == 0 and D <= 1024.
+// obj (C, R, D) f32, 16-byte aligned; am (A, C, M) int32; g (A, C, M) f32;
+// partial (segs, A, M, D) f32 scratch (unused when segs == 1); dspan
+// (A, M, D) bf16 if bf16, else f32.  Needs D % 8 == 0, 1 <= R <= 144 and
+// 1 <= segs <= max(C, 1).
 int span_region_dspan(const float* obj, const int* am, const float* g,
-                      void* dspan, int A, int M, int C, int R, int D, int bf16,
-                      void* stream) {
+                      float* partial, void* dspan, int A, int M, int C, int R,
+                      int D, int segs, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 || D > 128 * K3_MAXQ) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > BN || D % 8 || segs < 1 || segs > (C > 1 ? C : 1) ||
+      segs > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long rows = (long long)A * M;
-  if (rows == 0) return 0;
-  const unsigned grid = tiles(rows, K3_WARPS);
+  if (rows == 0 || D == 0) return 0;
+  if ((long long)A * C * M > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   if (bf16)
-    k3_dspan<__nv_bfloat16><<<grid, 32 * K3_WARPS, 0, st>>>(
-        obj, am, g, static_cast<__nv_bfloat16*>(dspan), A, M, C, R, D);
-  else
-    k3_dspan<float><<<grid, 32 * K3_WARPS, 0, st>>>(
-        obj, am, g, static_cast<float*>(dspan), A, M, C, R, D);
-  return (int)cudaGetLastError();
+    return (int)k3_launch(obj, am, g, partial,
+                          static_cast<__nv_bfloat16*>(dspan), A, M, C, R, D,
+                          segs, st);
+  return (int)k3_launch(obj, am, g, partial, static_cast<float*>(dspan), A, M,
+                        C, R, D, segs, st);
 }
 
 // span (A, M, D) bf16 if bf16, else f32; am (A, C, M) int32; g (A, C, M)

@@ -24,11 +24,18 @@ argmax region is saved, and max is locally linear in it, so
 
 It goes to the first-max region, not split across ties.  Under
 ``impl='cuda'`` these are kernels K3 and K4; the other impls run their
-plain versions.  Numerics: the forward contracts in the span dtype (obj
-is cast to it) and accumulates in f32; the backward keeps ``g`` in f32,
-reads ``obj`` in its own dtype and ``span`` in the span dtype, and
-accumulates in f32 -- the arithmetic of the JAX package's einsum and
-chunked backward.  (Its Pallas backward rounds the g-weighted one-hot
+plain versions.  K3 serves its gather from shared memory: a block stages
+each image's 32-column slice of ``obj`` and its 256-row tile's argmax and
+``g``, and sums the images in increasing order, one ``fmaf`` each, as the
+plain gather does; where that leaves too few blocks (the VG call) the
+images are cut into ``dspan_segments`` segments whose f32 partial sums a
+second pass adds in order.  It is bound by shared-memory reads (16 bytes
+of ``obj`` per 4 FMAs) and its staging, not by its FLOP.
+
+Numerics: the forward contracts in the span dtype (obj is cast to it)
+and accumulates in f32; the backward keeps ``g`` in f32, reads ``obj``
+in its own dtype and ``span`` in the span dtype, and accumulates in f32
+-- the arithmetic of the JAX package's einsum and chunked backward.  (Its Pallas backward rounds the g-weighted one-hot
 and ``obj`` to the span dtype before its matmuls; the port does not.)
 
 Each kernel's wrapper takes its plain version only for a CPU tensor; on
@@ -130,7 +137,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.span_region_fwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.span_region_fwd.restype = i32
-        lib.span_region_dspan.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.span_region_dspan.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
         lib.span_region_dspan.restype = i32
         lib.span_region_dobj.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
         lib.span_region_dobj.restype = i32
@@ -173,14 +180,15 @@ _I32 = (torch.int32,)
 def supports(D: int, R: int) -> bool:
     """Whether the kernels take this width and region count: D a multiple
     of 8 (16-byte rows of bf16 for TMA and the loaders) and at most 1024
-    (K3's registers), and 1 <= R <= MAX_REGIONS."""
+    (the widest the card tests hold), and 1 <= R <= MAX_REGIONS."""
     return 8 <= D <= 1024 and D % 8 == 0 and 1 <= R <= MAX_REGIONS
 
 
 def _check_aligned(name, t: torch.Tensor):
-    """TMA reads a bf16 tensor only from a 16-byte-aligned base."""
+    """TMA and 16-byte ``cp.async`` copies read only from a
+    16-byte-aligned base."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
@@ -213,9 +221,31 @@ def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
     return mx, am
 
 
+# K3 image segments.  A block owns a row tile of _DSPAN_ROWS span rows and
+# a _DSPAN_DSLICE-column slice of D (csrc/span_region.cu K3_ROWS, K3_DS).
+# Where those blocks fall short of _DSPAN_TARGET_BLOCKS (four on each of
+# the H100's 132 SMs), the C images are cut into segments of at least
+# _DSPAN_MIN_IMAGES, and a second pass adds the segments' partial sums in
+# order.  The count depends on the shapes only.
+_DSPAN_ROWS = 256
+_DSPAN_DSLICE = 32
+_DSPAN_TARGET_BLOCKS = 528
+_DSPAN_MIN_IMAGES = 8
+
+
+def dspan_segments(rows: int, C: int, D: int) -> int:
+    """Image segments of K3 for ``rows = A * M`` span rows."""
+    base = -(-rows // _DSPAN_ROWS) * -(-D // _DSPAN_DSLICE)
+    if base >= _DSPAN_TARGET_BLOCKS:
+        return 1
+    return max(1, min(round(_DSPAN_TARGET_BLOCKS / base),
+                      C // _DSPAN_MIN_IMAGES))
+
+
 def span_region_dspan(obj: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
                       span_dtype: torch.dtype):
-    """K3: ``dspan (A, M, D)`` in ``span_dtype``.  A CPU tensor takes
+    """K3: ``dspan (A, M, D)`` in ``span_dtype``, with no float atomics:
+    two calls on the same inputs give the same bits.  A CPU tensor takes
     :func:`span_region_dspan_plain`; a CUDA tensor launches the kernel or
     raises."""
     if g.device.type == "cpu":
@@ -230,15 +260,21 @@ def span_region_dspan(obj: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
     _check("obj", obj, _F32, (C, R, D), dev)
     _check("am", am, _I32, (A, C, M), dev)
     _check("g", g, _F32, (A, C, M), dev)
+    _check_aligned("obj", obj)
     if span_dtype not in _SPAN_DTYPES:
         raise TypeError(f"span dtype {span_dtype}")
+    segs = dspan_segments(A * M, C, D)
     dspan = torch.empty((A, M, D), dtype=span_dtype, device=dev)
+    partial = (torch.empty((segs, A, M, D), dtype=torch.float32, device=dev)
+               if segs > 1 else None)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.span_region_dspan(
-            obj.data_ptr(), am.data_ptr(), g.data_ptr(), dspan.data_ptr(),
-            A, M, C, R, D, int(span_dtype == torch.bfloat16), stream)
+            obj.data_ptr(), am.data_ptr(), g.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            dspan.data_ptr(), A, M, C, R, D, segs,
+            int(span_dtype == torch.bfloat16), stream)
     _raise_on(err, "span_region_dspan")
     launches["span_region_dspan"] += 1
     return dspan

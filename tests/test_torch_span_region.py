@@ -130,7 +130,7 @@ def test_supports_and_segments():
     assert sr.supports(400, 36) and sr.supports(24, 7)
     assert not sr.supports(402, 36)          # 16-byte bf16 rows (TMA)
     assert not sr.supports(400, 145)         # wider than a column tile
-    assert not sr.supports(1032, 36)         # K3's register accumulators
+    assert not sr.supports(1032, 36)         # wider than the card tests
     # K4 keeps no shared accumulator on bf16 spans, and its f32 kernel
     # takes 2 images a block where 4 do not fit: every R up to 144
     assert sr.supports(400, 113) and sr.supports(400, 114)
@@ -143,9 +143,53 @@ def test_supports_and_segments():
     assert sr.dobj_segments(128 * 20, 128, 36, 400, True) == 10
     assert sr.dobj_segments(A * M, C, R, D, True) == 1
     assert sr.dobj_segments(A * M, C, R, D, False) == 1
+    # K3: 105 row tiles x 13 D slices fill the card at the contrastive
+    # call; VG's 10 x 13 blocks take round(528 / 130) image segments; the
+    # test shape's single block would want 528, but its 5 images make one
+    assert sr.dspan_segments(128 * 210, 128, 400) == 1
+    assert sr.dspan_segments(128 * 20, 128, 400) == 4
+    assert sr.dspan_segments(A * M, C, D) == 1
+    assert sr.dspan_segments(37 * 13, 37, 400) == 4      # C // 8 images
+    assert sr.dspan_segments(128 * 20, 0, 400) == 1
     with pytest.raises(ValueError):
         sr.span_region_max(torch.zeros(1, 1, 8), torch.zeros(1, 1, 8),
                            "pallas")
+
+
+def _segmented_dspan(obj, am, g, segs):
+    """K3's order with the images cut into ``segs`` segments, as the
+    kernel cuts them (segment z takes images [C z / segs, C (z + 1) /
+    segs)): each segment's f32 sum, then the segments added in order."""
+    C = g.shape[1]
+    out = None
+    for z in range(segs):
+        c0, c1 = C * z // segs, C * (z + 1) // segs
+        part = sr.span_region_dspan_plain(obj[c0:c1], am[:, c0:c1],
+                                          g[:, c0:c1], torch.float32)
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("a,m,c,r,d", [
+    (128, 20, 128, 36, 64), (37, 13, 37, 36, 40), (9, 5, 130, 3, 16)])
+def test_dspan_segments_sum_matches_plain(a, m, c, r, d):
+    """K3's segmented sum, in the segment count and order the kernel takes
+    at these shapes (VG's rows and images at a narrow D, and more segments
+    than a block count), within the f32 tolerance of the plain version;
+    every image lands in exactly one segment."""
+    segs = sr.dspan_segments(a * m, c, d)
+    assert segs > 1
+    bounds = [(c * z // segs, c * (z + 1) // segs) for z in range(segs)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == c
+    assert all(hi == lo for (_, hi), (lo, _) in zip(bounds, bounds[1:]))
+    rs = np.random.RandomState(a + m + c)
+    obj = torch.from_numpy(rs.randn(c, r, d).astype(np.float32))
+    am = torch.from_numpy(rs.randint(0, r, (a, c, m)).astype(np.int32))
+    g = torch.from_numpy(rs.randn(a, c, m).astype(np.float32))
+    want = sr.span_region_dspan_plain(obj, am, g, torch.float32)
+    got = _segmented_dspan(obj, am, g, segs)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
 def _bf16_terms(g: torch.Tensor, terms: int):
@@ -228,13 +272,16 @@ def cuda():
     # D), a D tail inside a 64-deep k tile, C*R not a multiple of 128 with
     # many K4 row segments
     (5, 7, 3, 144, 400), (4, 9, 6, 36, 16), (3, 50, 5, 36, 72),
-    (64, 100, 16, 36, 400)])
+    (64, 100, 16, 36, 400),
+    # the widest D supports() takes: 32 K3 slices, K2/K4 many k tiles
+    (6, 30, 9, 36, 1024)])
 def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
     """K2: f32 max within 1e-4 of the plain version (scaled to the
     scores' magnitude), argmax equal wherever the top-2 gap exceeds that;
     bf16 argmax agreement >= 0.99.  K3/K4 at 1e-4 (f32) of the plain
-    versions and bitwise-equal over two calls.  obj all zero: argmax 0;
-    g all zero: dobj zero."""
+    versions (K3 bf16 at 1e-2) and bitwise-equal over two calls.  obj all
+    zero: argmax 0, and K3 on that all-ties argmax with nonzero g holds the
+    same limits; g all zero: dobj zero."""
     gen = torch.Generator(device=cuda).manual_seed(a * m + c)
     span = torch.randn(a, m, d, generator=gen, device=cuda)
     obj = torch.randn(c, r, d, generator=gen, device=cuda)
@@ -275,3 +322,8 @@ def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
         zdobj = sr.span_region_dobj(s, zam, torch.zeros_like(g), r,
                                     torch.float32)
         assert torch.equal(zdobj, torch.zeros_like(zdobj))
+        zdspan = sr.span_region_dspan(obj, zam, g, dt)
+        pzdspan = sr.span_region_dspan_plain(obj, zam, g, dt)
+        assert (zdspan.float() - pzdspan.float()).abs().max().item() \
+            <= tol * max(1.0, pzdspan.float().abs().max().item())
+        assert torch.equal(zdspan, sr.span_region_dspan(obj, zam, g, dt))
