@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (cliora_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py
 
 Builds every CUDA kernel of the port's paths from the sources in this
 checkout (one nvcc per source, started together), holds each against its
@@ -30,14 +30,8 @@ calls; K2 (wgmma + TMA) and K4 (a one-hot GEMM on the tensor cores) are
 also timed against a ``torch.matmul`` of the same bf16 operands (the
 product alone), K3 and K4 on the all-ties argmax of init against random
 argmax, K4's f32 route against the bf16 GEMM on a two-term split of the
-span, and K3 beside its shared-memory floor and the image segments it
-took.
-
-With ``--parent DIR`` (a copy of an earlier commit's files, e.g. the
-parent's ``git archive``), it also runs that tree's K3 and one f32 step's
-gradients, in a child process started in DIR, on the inputs of this run,
-and reports whether dspan at the f32 contrastive and VG calls and the
-step's gradient norm have the same bits, and the largest difference.
+span, K3 beside its shared-memory floor and the image segments it took,
+and K3 with its argmax and g staged in 8-byte against 4-byte copies.
 
 Prints one JSON object per phase, then the ``kernels`` summary, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -46,7 +40,6 @@ before the last line; without a CUDA device it exits non-zero at once.
 No check falls back to the CPU.
 """
 
-import argparse
 import dataclasses
 import json
 import math
@@ -54,7 +47,6 @@ import re
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -140,8 +132,10 @@ K1_FUNCS = re.compile(r"::(prep_weights|init_leaves|combine|fc0|project_simt|"
 DEVICE_FUNCS = {
     "inside_cky": K1_FUNCS,
     "span_region_fwd": re.compile(r"::k2_fwd_(bf16<|f32\()"),
-    "span_region_dspan": re.compile(r"::k3_(dspan|reduce)<"),
-    "span_region_dobj": re.compile(r"::k4_(dobj_gemm\(|dobj_f32<|reduce\()"),
+    "span_region_dspan": re.compile(r"::k3_dspan<"),
+    "span_region_dobj": re.compile(r"::k4_dobj_(gemm\(|f32<)"),
+    # the second pass of K3 and K4 where they cut their sums into segments
+    "segment_reduce": re.compile(r"::segment_reduce<"),
 }
 SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
 # K1 at the shapes of its card-only test (B, n, D, norm): odd widths, one
@@ -347,7 +341,10 @@ def profile_kernels(fn, reps=1):
     ``reps`` calls; empty when the profiler sees no device activity.  A
     trace can miss the first kernel launched after it starts, so a short
     spin kernel (``torch.cuda._sleep``) runs first and is left out of the
-    result, and a count per call is rounded from several calls."""
+    result.  It can also miss a later launch, so a count per call is
+    rounded from several calls, ms is the mean of the launches the trace
+    holds times that count (a kernel of fewer than one launch a call
+    gets its ms over ``reps``), and ``traced`` says how many it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -362,18 +359,21 @@ def profile_kernels(fn, reps=1):
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and "spin_kernel" not in evt.name):
-            rec = by_name.setdefault(evt.name[:60], {"ms": 0.0, "count": 0})
-            rec["ms"] += evt.device_time_total / 1e3 / reps
-            rec["count"] += 1
+            rec = by_name.setdefault(evt.name[:60], {"ms": 0.0, "traced": 0})
+            rec["ms"] += evt.device_time_total / 1e3
+            rec["traced"] += 1
     for rec in by_name.values():
-        rec["count"] = round(rec["count"] / reps)
+        rec["count"] = round(rec["traced"] / reps)
+        rec["ms"] *= (rec["count"] / rec["traced"] if rec["count"]
+                      else 1 / reps)
     return by_name
 
 
-def own_launches(by_kernel, name):
-    """CUDA launches of kernel ``name``'s device functions in a profile."""
+def own_launches(by_kernel, *names):
+    """CUDA launches of the device functions of kernels ``names`` in a
+    profile."""
     own = [r["count"] for k, r in by_kernel.items()
-           if DEVICE_FUNCS[name].search(k)]
+           if any(DEVICE_FUNCS[n].search(k) for n in names)]
     return sum(own) if own else "not measured"
 
 
@@ -728,8 +728,9 @@ def train_steps(dtype, batch):
         "profiled_step_device_busy_ms": busy if by_kernel else "not measured",
         "idle_share": 1 - busy / step_ms if by_kernel else "not measured",
         "total_loss_first": first, "total_loss_last": last,
-        "launches_per_step_profiled": {k: own_launches(by_kernel, k)
-                                       for k in SR_KERNELS},
+        "launches_per_step_profiled": {
+            k: own_launches(by_kernel, k)
+            for k in SR_KERNELS + ("segment_reduce",)},
         "top_kernels": dict(sorted(by_kernel.items(),
                                    key=lambda kv: -kv[1]["ms"])[:12]),
     }
@@ -820,8 +821,8 @@ def train_cpu_reference(rs):
 
 def span_region_timing(span, obj, g, am):
     """Each of K2-K4 against its plain version on the same inputs: plain,
-    kernel, kernel, plain; and its CUDA launches per call (K3 and K4 with
-    the segment count they took)."""
+    kernel, kernel, plain; and its CUDA launches per call, segment_reduce
+    included (K3 and K4 with the segment count they took)."""
     dt = span.dtype
     A, M, Dd = span.shape
     C, Rr, _ = obj.shape
@@ -850,7 +851,8 @@ def span_region_timing(span, obj, g, am):
                      "plain_ms": statistics.median(p1 + p2),
                      **sr_bound(name, span, obj), "library_ms": None,
                      "kernel_runs_ms": k1 + k2, "plain_runs_ms": p1 + p2,
-                     "cuda_launches_per_call": own_launches(by_kernel, name),
+                     "cuda_launches_per_call": own_launches(
+                         by_kernel, name, "segment_reduce"),
                      "profiled_device_ms": by_kernel}
         if name in segments:
             out[name]["segments"] = segments[name]
@@ -923,6 +925,42 @@ def redesign_timing(span, obj, g):
     return out
 
 
+def k3_staging_timing(span, obj, g):
+    """K3's two ways of staging argmax and g, in turns on the same inputs:
+    8-byte copies of two rows (M even and both 8-byte aligned, as the
+    step's tensors are) and 4-byte copies of one row, taken here by
+    handing the wrapper copies of argmax and g that start 4 bytes past an
+    8-byte boundary.  Both must give the same bits."""
+    M = span.shape[1]
+    _, am = span_region.span_region_fwd(span, obj)
+
+    def offset4(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    am4, g4 = offset4(am), offset4(g)
+    check(am.data_ptr() % 8 == 0 and g.data_ptr() % 8 == 0
+          and am4.data_ptr() % 8 == 4 and g4.data_ptr() % 8 == 4,
+          "K3 staging: argmax and g not at the alignments to compare")
+
+    def k3(a, gg):
+        return lambda: span_region.span_region_dspan(obj, a, gg, span.dtype)
+
+    e1, f1, f2, e2 = (cuda_ms(k3(am, g)), cuda_ms(k3(am4, g4)),
+                      cuda_ms(k3(am4, g4)), cuda_ms(k3(am, g)))
+    rec = {"m_even": M % 2 == 0,
+           "copies_8byte_ms": statistics.median(e1 + e2),
+           "copies_4byte_ms": statistics.median(f1 + f2),
+           "copies_8byte_runs_ms": e1 + e2, "copies_4byte_runs_ms": f1 + f2,
+           "equal_bits": bool(torch.equal(k3(am, g)(), k3(am4, g4)()))}
+    rec["copies_4byte_over_8byte"] = (rec["copies_4byte_ms"]
+                                      / rec["copies_8byte_ms"])
+    emit({"phase": "k3_staging_timing", "name": "span_region_dspan",
+          "dtype": str(span.dtype), "span": list(span.shape), **rec})
+    check(rec["equal_bits"], "K3: its two staging paths disagree")
+    return rec
+
+
 def f32_split_timing(span, obj, g):
     """K4 on f32 spans: the SIMT kernel against the split formulation --
     span = bf16 hi + bf16 lo, each through the bf16 one-hot GEMM, summed --
@@ -964,93 +1002,10 @@ def f32_split_timing(span, obj, g):
     return rec
 
 
-# Run in a child process started in an earlier tree (``--parent``): that
-# tree's K3 and one f32 step's gradients on this run's inputs
-PARENT_CHILD = r"""
-import sys
-import torch
-import chip_smoke as cs
-from cliora_tpu_torch.ops import span_region
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-data = torch.load(sys.argv[1])
-out = {}
-for tag in ("contrastive_f32", "vg"):
-    obj, am, g = (data[f"{tag}/{k}"].cuda() for k in ("obj", "am", "g"))
-    out["dspan/" + tag] = span_region.span_region_dspan(
-        obj, am, g, torch.float32).cpu()
-flat = {k[5:]: v.numpy() for k, v in data.items() if k.startswith("flat/")}
-batch = {k[6:]: v.numpy() for k, v in data.items() if k.startswith("batch/")}
-_, grads = cs.step_grads(*cs.train_configs("float32", attn_dropout=0.0),
-                         flat, batch, "cuda")
-out.update({"grad/" + k: v.cpu() for k, v in grads.items()})
-torch.save(out, sys.argv[2])
-"""
-
-
-def parent_compare(parent, inputs, rs):
-    """K3 at the f32 contrastive and VG calls, and the gradients of one f32
-    step (dropout off, perturbed weights), here and in the tree ``parent``
-    on the same inputs: equal bits or the largest difference."""
-    data, here = {}, {}
-    for tag in ("contrastive_f32", "vg"):
-        span, obj, g = inputs[tag]
-        _, am = span_region.span_region_fwd(span, obj)
-        data.update({f"{tag}/obj": obj.cpu(), f"{tag}/am": am.cpu(),
-                     f"{tag}/g": g.cpu()})
-        here["dspan/" + tag] = span_region.span_region_dspan(
-            obj, am, g, torch.float32).cpu()
-    base = Trainer.build(*train_configs("float32"), V, seed=SEED + 3,
-                         device="cpu")
-    flat = perturbed(base.params, rs)
-    del base
-    batch = train_batch(rs, B, N, V, K_NEG, R, F)
-    data.update({"flat/" + k: torch.from_numpy(v) for k, v in flat.items()})
-    data.update({"batch/" + k: torch.from_numpy(np.asarray(v))
-                 for k, v in batch.items()})
-    _, grads = step_grads(*train_configs("float32", attn_dropout=0.0), flat,
-                          batch, "cuda")
-    here.update({"grad/" + k: v.cpu() for k, v in grads.items()})
-    with tempfile.TemporaryDirectory() as tmp:
-        inp, outp = f"{tmp}/inputs.pt", f"{tmp}/parent.pt"
-        torch.save(data, inp)
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", PARENT_CHILD, inp, outp],
-                       cwd=parent, check=True, timeout=900)
-        child_s = time.perf_counter() - t0
-        theirs = torch.load(outp)
-
-    def norm(d):
-        return math.sqrt(sum(float(v.double().pow(2).sum())
-                             for k, v in d.items() if k.startswith("grad/")))
-
-    rec = {"phase": "parent_compare", "parent": parent,
-           "child_seconds": child_s}
-    for tag in ("contrastive_f32", "vg"):
-        a, b = here["dspan/" + tag], theirs["dspan/" + tag]
-        span, obj, _ = inputs[tag]
-        rec[tag] = {"dspan_equal_bits": bool(torch.equal(a, b)),
-                    "dspan_max_abs_diff": (a - b).abs().max().item(),
-                    "dspan_scale": b.abs().max().item(),
-                    "segments": span_region.dspan_segments(
-                        span.shape[0] * span.shape[1], obj.shape[0],
-                        obj.shape[2])}
-    gk = [k for k in here if k.startswith("grad/")]
-    rec["f32_step"] = {
-        "grad_norm": norm(here), "grad_norm_parent": norm(theirs),
-        "grad_norm_equal_bits": norm(here) == norm(theirs),
-        "grads_equal_bits": sum(torch.equal(here[k], theirs[k]) for k in gk),
-        "grads": len(gk),
-        "grad_max_abs_diff": max((here[k] - theirs[k]).abs().max().item()
-                                 for k in gk)}
-    emit(rec)
-    return rec
-
-
-def train_path(rs, parent=None):
+def train_path(rs):
     """K2-K4 against their plain versions, the train steps, the route and
-    CPU comparisons, timing, and with ``parent`` the comparison with an
-    earlier tree.  Returns the K2-K4 entries of the kernels line."""
+    CPU comparisons, timing.  Returns the K2-K4 entries of the kernels
+    line."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1112,9 +1067,9 @@ def train_path(rs, parent=None):
         _, am = span_region.span_region_fwd(span, obj)
         timing[tag] = span_region_timing(span, obj, g, am)
     redesign = redesign_timing(*inputs["contrastive"])
+    for tag in ("contrastive", "contrastive_f32"):
+        k3_staging_timing(*inputs[tag])
     split = f32_split_timing(*inputs["contrastive_f32"])
-    if parent:
-        parent_compare(parent, inputs, rs)
     err_keys = {"span_region_fwd": "fwd_max_abs_err",
                 "span_region_dspan": "dspan_max_abs_err",
                 "span_region_dobj": "dobj_max_abs_err"}
@@ -1151,11 +1106,6 @@ def train_path(rs, parent=None):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", metavar="DIR",
-                    help="an earlier tree to compare K3 and an f32 step's "
-                         "gradients with")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
@@ -1191,7 +1141,7 @@ def main():
     rs = np.random.RandomState(SEED)
     entries = [parse_path(rs)]
     torch.cuda.empty_cache()
-    entries += train_path(rs, args.parent)
+    entries += train_path(rs)
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -55,8 +55,8 @@
 // the plain gather does; where the shape leaves too few blocks to fill
 // the card (the VG call), the images are cut into a shape-determined
 // number of segments, each block writes its segment's f32 partial sums,
-// and k3_reduce adds them in segment order and rounds once to the span
-// dtype.  No float atomics: two calls give the same bits.  What bounds
+// and segment_reduce adds them in segment order and rounds once to the
+// span dtype.  No float atomics: two calls give the same bits.  What bounds
 // it: shared-memory reads, 16 bytes per 4 FMAs (A M C D floats gathered,
 // 5.5 GB at the contrastive call) and the staging writes beside them, not
 // the 2 A M C D FLOP; staging re-reads obj once per row tile and the
@@ -67,8 +67,8 @@
 // one-hot matmul.  No float atomics, so two calls on the same inputs give
 // the same bits (the JAX package promises bitwise-exact resume): the rows
 // are cut into a shape-determined number of fixed segments, each block
-// writes its segment's partial sums, and k4_reduce adds them in segment
-// order.
+// writes its segment's partial sums, and segment_reduce adds them in
+// segment order.
 //  * bf16 spans (the contrastive call): k4_dobj_gemm, on the tensor cores.
 //    A block owns 128 region rows (two consumer warpgroups of 64) x 200
 //    columns of D.  A producer warp brings each 64-row k tile of span by
@@ -132,6 +132,23 @@ __device__ inline void store4(__nv_bfloat16* p, float4 v) {
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The second pass of K3 and K4 where they cut their sums into segments:
+// out[i] = the TS rounding of the sum over segments s, in order, of
+// partial[s][i] (partial is (segs, n) f32); four consecutive entries a
+// thread, n % 4 == 0.
+template <typename TS>
+__global__ void segment_reduce(const float* __restrict__ partial,
+                               TS* __restrict__ out, long long n, int segs) {
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float4 s = load4(partial + i);
+  for (int k = 1; k < segs; ++k) {
+    const float4 v = load4(partial + (long long)k * n + i);
+    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  store4(out + i, s);
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -609,21 +626,6 @@ k3_dspan(const float* __restrict__ obj, const int* __restrict__ am,
   }
 }
 
-// dspan[i] = the span-dtype rounding of the sum over segments s, in order,
-// of partial[s][i]; four consecutive entries a thread.
-template <typename TS>
-__global__ void k3_reduce(const float* __restrict__ partial,
-                          TS* __restrict__ dspan, long long n, int segs) {
-  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= n) return;
-  float4 s = load4(partial + i);
-  for (int k = 1; k < segs; ++k) {
-    const float4 v = load4(partial + (long long)k * n + i);
-    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
-  }
-  store4(dspan + i, s);
-}
-
 // ---------------------------------------------------------------- K4 ----
 
 constexpr int K4_DS = 128;      // f32: D columns per block, 4 a lane
@@ -871,21 +873,12 @@ k4_dobj_gemm(const __grid_constant__ CUtensorMap span_map,
   }
 }
 
-// dobj[i] = sum over segments s, in order, of partial[s][i].
-__global__ void k4_reduce(const float* __restrict__ partial,
-                          float* __restrict__ dobj, long long n, int segs) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = partial[i];
-  for (int k = 1; k < segs; ++k) s += partial[(long long)k * n + i];
-  dobj[i] = s;
-}
-
 unsigned tiles(long long x, long long tile) {
   return (unsigned)((x + tile - 1) / tile);
 }
 
-// k3_dspan, and k3_reduce after it when the images are cut into segments
+// k3_dspan, and segment_reduce after it when the images are cut into
+// segments
 template <typename TS>
 cudaError_t k3_launch(const float* obj, const int* am, const float* g,
                       float* partial, TS* dspan, int A, int M, int C, int R,
@@ -906,7 +899,7 @@ cudaError_t k3_launch(const float* obj, const int* am, const float* g,
                                         D, segs);
   if ((err = cudaGetLastError()) != cudaSuccess || segs == 1) return err;
   const long long n = rows * D;
-  k3_reduce<TS><<<tiles(n / 4, 256), 256, 0, st>>>(partial, dspan, n, segs);
+  segment_reduce<TS><<<tiles(n / 4, 256), 256, 0, st>>>(partial, dspan, n, segs);
   return cudaGetLastError();
 }
 
@@ -1021,7 +1014,8 @@ int span_region_dobj(const void* span, const int* am, const float* g,
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (segs > 1) {
-    k4_reduce<<<tiles(n, 256), 256, 0, st>>>(partial, dobj, n, segs);
+    segment_reduce<float><<<tiles(n / 4, 256), 256, 0, st>>>(partial, dobj, n,
+                                                          segs);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
