@@ -31,7 +31,11 @@ also timed against a ``torch.matmul`` of the same bf16 operands (the
 product alone), K3 and K4 on the all-ties argmax of init against random
 argmax, K4's f32 route against the bf16 GEMM on a two-term split of the
 span, K3 beside its shared-memory floor and the image segments it took,
-and K3 with its argmax and g staged in 8-byte against 4-byte copies.
+and K3 with its argmax and g staged in 8-byte against 4-byte copies.  At
+the VG and f32 contrastive calls K2's f32 route is also timed against a
+``torch.matmul`` of the same f32 operands with TF32 off, and K4's f32
+route (accumulators in registers) on all-ties against random argmax; the
+build fails if that K4 kernel spills.
 
 Prints one JSON object per phase, then the ``kernels`` summary, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -133,11 +137,35 @@ DEVICE_FUNCS = {
     "inside_cky": K1_FUNCS,
     "span_region_fwd": re.compile(r"::k2_fwd_(bf16<|f32\()"),
     "span_region_dspan": re.compile(r"::k3_dspan<"),
-    "span_region_dobj": re.compile(r"::k4_dobj_(gemm\(|f32<)"),
+    "span_region_dobj": re.compile(r"::k4_dobj_(gemm\(|f32<|regs\()"),
     # the second pass of K3 and K4 where they cut their sums into segments
     "segment_reduce": re.compile(r"::segment_reduce<"),
 }
 SR_KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
+# the device functions and formulation of each kernel's f32 route at the
+# model's R = 36 (the VG call, and the contrastive call of the f32 step)
+SR_F32_ROUTES = {
+    "span_region_fwd": {
+        "device_functions": ["k2_fwd_f32"],
+        "formulation": "f32 FMA on the CUDA cores, each score summed over D "
+                       "in order from 0 (the order of torch's f32 GEMM); "
+                       "max/argmax from a shared-memory score tile"},
+    "span_region_dspan": {
+        "device_functions": ["k3_dspan", "segment_reduce"],
+        "formulation": "gather of obj rows from shared memory, f32 FMA"},
+    "span_region_dobj": {
+        "device_functions": ["k4_dobj_regs", "segment_reduce"],
+        "formulation": "argmax-routed f32 FMA, one fmaf a row per entry in "
+                       "row order, accumulators in registers"},
+}
+# kernels that ptxas must compile without spills
+NO_SPILL = ("k4_dobj_regs",)
+# the parent's f32 route of K4 (k4_dobj_f32, a shared-memory scatter in 9
+# row segments) at the f32 contrastive call of train_path's inputs: the
+# error of dobj summed over all regions, as a fraction of that sum's
+# largest magnitude, as the parent's run of f32_split_timing recorded it
+# (PERF.md section 6)
+PARENT_F32_REGION_SUM_REL_ERR = 3.162051336535859e-07
 # K1 at the shapes of its card-only test (B, n, D, norm): odd widths, one
 # k tile, one level, no unit norm
 K1_TEST_SHAPES = ((5, 7, 48, "unit"), (2, 2, 24, "unit"), (6, 3, 16, "none"))
@@ -173,7 +201,40 @@ def ptxas_summary(lines):
             for m in [re.search(r"Used (\d+) registers", line)] if m]
     spills = sum(int(x) for line in lines
                  for x in re.findall(r"(\d+) bytes spill", line))
-    return {"max_registers": max(regs, default=None), "spill_bytes": spills}
+    return {"max_registers": max(regs, default=None), "spill_bytes": spills,
+            "by_function": ptxas_by_function(lines)}
+
+
+def kernel_name(mangled):
+    """``name<template arguments as mangled>`` of a mangled __global__
+    function in a namespace, e.g. ``k2_fwd_bf16<Li36E>``."""
+    rest, name = mangled[3:], mangled
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group(0))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if rest.startswith("I") and "EEv" in rest:
+        return f"{name}<{rest[1:rest.index('EEv')]}>"
+    return name
+
+
+def ptxas_by_function(lines):
+    """Registers and spill bytes of each compiled kernel, by
+    :func:`kernel_name`."""
+    out, cur = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(_ZN\w+)'", line)
+        if m:
+            cur = kernel_name(m.group(1))
+            out[cur] = {"registers": None, "spill_bytes": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+        out[cur]["spill_bytes"] += sum(
+            int(x) for x in re.findall(r"(\d+) bytes spill", line))
+    return out
 
 
 def leaves(tr, tokens):
@@ -217,7 +278,10 @@ def sr_bound(name, span, obj):
     argmax (A, C, M) f32 + int32.  K3: 2 A M C D FLOP of f32 FMA on the
     CUDA cores; reads g, argmax and f32 obj, writes dspan in the span
     dtype; beside it the shared-memory floor of its gather formulation.
-    K4: the same FLOP; reads span, g and argmax, writes f32 dobj."""
+    K4: the same FLOP; reads span, g and argmax, writes f32 dobj; on f32
+    spans with R = 36 beside it the floor of its formulation, the span
+    slices (256 columns, the last one zero-filled past D) read once from
+    shared memory per (row, image)."""
     A, M, Dd = span.shape
     C, Rr, _ = obj.shape
     es = span.element_size()
@@ -231,15 +295,18 @@ def sr_bound(name, span, obj):
     if name == "span_region_dspan":
         return (roofline(flops, gam + 4 * C * Rr * Dd + es * A * M * Dd,
                          PEAK_FLOPS["float32"])
-                | k3_smem_floor(A, M, C, Dd))
-    return roofline(flops, es * A * M * Dd + gam + 4 * C * Rr * Dd,
-                    PEAK_FLOPS["float32"])
+                | smem_floor(A, M, C, Dd))
+    rec = roofline(flops, es * A * M * Dd + gam + 4 * C * Rr * Dd,
+                   PEAK_FLOPS["float32"])
+    if span.dtype == torch.float32 and Rr == 36:
+        rec |= smem_floor(A, M, C, 256 * -(-Dd // 256))
+    return rec
 
 
-def k3_smem_floor(A, M, C, Dd):
-    """K3's floor in its own formulation: the A M C D f32 obj entries it
-    gathers, each read once from shared memory, at the shared-memory rate
-    of the card's maximum SM clock."""
+def smem_floor(A, M, C, Dd):
+    """The floor of a formulation that reads A M C D f32 entries once from
+    shared memory (K3 gathers obj rows, K4's f32 route reads span rows),
+    at the shared-memory rate of the card's maximum SM clock."""
     nbytes = 4 * A * M * C * Dd
     clock = max_sm_clock_hz()
     return {"smem_gather_bytes": nbytes, "sm_clock_max_hz": clock,
@@ -575,6 +642,10 @@ def span_region_vs_plain(span, obj, g):
            "finite": bool(torch.isfinite(mx).all()),
            "shapes_ok": (mx.shape == pmx.shape and am.dtype == torch.int32)}
     if dt == torch.float32:
+        # K2's f32 route sums in the order of torch's f32 GEMM, which the
+        # plain version runs: recorded, the f32 step's route check leans
+        # on it (PERF.md section 6)
+        rec["fwd_bits_equal_plain"] = bool(torch.equal(mx, pmx))
         # the argmax is held wherever the top two scores differ by more
         # than the tolerance of the max
         top2 = torch.topk(torch.einsum("amd,crd->acmr", span, obj),
@@ -925,6 +996,41 @@ def redesign_timing(span, obj, g):
     return out
 
 
+def f32_redesign_timing(span, obj, g):
+    """What the f32 routes of K2 and K4 are held to at a call with f32
+    spans: K2's ``gemm_yardstick_ms``, a ``torch.matmul`` of the same f32
+    operands with TF32 off (span x obj^T, the product alone, no max), and
+    K4 on the all-ties argmax of a zero obj against random argmax, in
+    turns."""
+    A, M, Dd = span.shape
+    C, Rr, _ = obj.shape
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the f32 yardstick must run without TF32")
+    s2, o2 = span.reshape(A * M, Dd), obj.reshape(C * Rr, Dd)
+    _, am = span_region.span_region_fwd(span, obj)
+    _, am0 = span_region.span_region_fwd(span, torch.zeros_like(obj))
+
+    def k4(a):
+        return lambda: span_region.span_region_dobj(span, a, g, Rr,
+                                                    torch.float32)
+
+    r1, t1, t2, r2 = (cuda_ms(k4(am)), cuda_ms(k4(am0)), cuda_ms(k4(am0)),
+                      cuda_ms(k4(am)))
+    rand_ms, ties_ms = statistics.median(r1 + r2), statistics.median(t1 + t2)
+    return {
+        "span_region_fwd": {
+            "gemm_yardstick_ms": statistics.median(
+                cuda_ms(lambda: torch.matmul(s2, o2.t()))),
+            "gemm_yardstick": "torch.matmul(span (A*M, D) f32, obj (C*R, D) "
+                              "f32 transposed), TF32 off: the product "
+                              "alone, no max"},
+        "span_region_dobj": {
+            "random_argmax_ms": rand_ms, "all_ties_ms": ties_ms,
+            "all_ties_over_random": ties_ms / rand_ms,
+            "random_runs_ms": r1 + r2, "all_ties_runs_ms": t1 + t2},
+    }
+
+
 def k3_staging_timing(span, obj, g):
     """K3's two ways of staging argmax and g, in turns on the same inputs:
     8-byte copies of two rows (M even and both 8-byte aligned, as the
@@ -962,17 +1068,18 @@ def k3_staging_timing(span, obj, g):
 
 
 def f32_split_timing(span, obj, g):
-    """K4 on f32 spans: the SIMT kernel against the split formulation --
-    span = bf16 hi + bf16 lo, each through the bf16 one-hot GEMM, summed --
-    on the same inputs, in turns, with each one's error against the plain
-    version: elementwise (as a fraction of the largest magnitude), and of
-    the sum over all C*R region rows (as a fraction of that sum's largest
-    magnitude), the reduction a bias shared by every region's embedding
-    takes of dobj."""
+    """K4 on f32 spans: its f32 route (``k4_dobj_regs`` at R = 36) against
+    the split formulation -- span = bf16 hi + bf16 lo, each through the
+    bf16 one-hot GEMM, summed -- on the same inputs, in turns, with each
+    one's error against the plain version: elementwise (as a fraction of
+    the largest magnitude), and of the sum over all C*R region rows (as a
+    fraction of that sum's largest magnitude), the reduction a bias shared
+    by every region's embedding takes of dobj.  Beside them the parent's
+    f32 route's sum error as its run of this phase recorded it."""
     Rr = obj.shape[1]
     _, am = span_region.span_region_fwd(span, obj)
 
-    def simt():
+    def f32_route():
         return span_region.span_region_dobj(span, am, g, Rr, torch.float32)
 
     def split():
@@ -985,18 +1092,20 @@ def f32_split_timing(span, obj, g):
     scale = max(1.0, want.abs().max().item())
     want_sum = want.sum((0, 1))
     sum_scale = want_sum.abs().max().item()
-    got = {"split": split(), "simt": simt()}
+    got = {"split": split(), "f32": f32_route()}
     err = {k: (v - want).abs().max().item() for k, v in got.items()}
     sum_err = {k: (v.sum((0, 1)) - want_sum).abs().max().item() / sum_scale
                for k, v in got.items()}
-    s1, k1, k2, s2 = cuda_ms(simt), cuda_ms(split), cuda_ms(split), \
-        cuda_ms(simt)
+    s1, k1, k2, s2 = cuda_ms(f32_route), cuda_ms(split), cuda_ms(split), \
+        cuda_ms(f32_route)
     rec = {"ms": statistics.median(k1 + k2),
-           "simt_ms": statistics.median(s1 + s2),
-           "max_abs_err": err["split"], "simt_max_abs_err": err["simt"],
+           "f32_route_ms": statistics.median(s1 + s2),
+           "max_abs_err": err["split"], "f32_route_max_abs_err": err["f32"],
            "scale": scale, "within_rtol": err["split"] <= SR_F32_RTOL * scale,
            "region_sum_rel_err": sum_err["split"],
-           "simt_region_sum_rel_err": sum_err["simt"]}
+           "f32_route_region_sum_rel_err": sum_err["f32"],
+           "parent_f32_route_region_sum_rel_err":
+               PARENT_F32_REGION_SUM_REL_ERR}
     emit({"phase": "f32_split_timing", "name": "span_region_dobj",
           "span": list(span.shape), **rec})
     return rec
@@ -1067,6 +1176,12 @@ def train_path(rs):
         _, am = span_region.span_region_fwd(span, obj)
         timing[tag] = span_region_timing(span, obj, g, am)
     redesign = redesign_timing(*inputs["contrastive"])
+    f32_redesign = {}
+    for tag in ("vg", "contrastive_f32"):
+        f32_redesign[tag] = f32_redesign_timing(*inputs[tag])
+        for name, rec in f32_redesign[tag].items():
+            emit({"phase": "redesign_timing", "name": name, "call": tag,
+                  "dtype": "float32", **rec})
     for tag in ("contrastive", "contrastive_f32"):
         k3_staging_timing(*inputs[tag])
     split = f32_split_timing(*inputs["contrastive_f32"])
@@ -1097,7 +1212,11 @@ def train_path(rs):
             entry[tag] = ({k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by") + extra if k in t}
                           | {"max_abs_err": checked[(tag, "float32")][err_key],
-                             "span": list(inputs[tag][0].shape)})
+                             "span": list(inputs[tag][0].shape),
+                             "cuda_launches_per_call":
+                                 t["cuda_launches_per_call"]}
+                          | SR_F32_ROUTES[name]
+                          | f32_redesign[tag].get(name, {}))
         entry.update(redesign.get(name, {}))
         if name == "span_region_dobj":
             entry["contrastive_f32"]["split_bf16"] = split
@@ -1129,8 +1248,12 @@ def main():
           "wall_seconds": time.perf_counter() - t0})
     for name in SOURCES:
         rec = built[name]
+        summary = ptxas_summary(rec["ptxas"])
         emit({"phase": "build", "kernel": name, "seconds": rec["seconds"],
-              **ptxas_summary(rec["ptxas"]), "ptxas": rec["ptxas"]})
+              **summary, "ptxas": rec["ptxas"]})
+        for fn, regs in summary["by_function"].items():
+            check(not fn.startswith(NO_SPILL) or regs["spill_bytes"] == 0,
+                  f"{fn} spills {regs['spill_bytes']} bytes")
     # the host decoder builds at first use too: build it here, not inside
     # the first timed request
     t0 = time.perf_counter()

@@ -317,4 +317,28 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// TMA descriptor of a row-major (rows, cols) f32 matrix, box (box_rows,
+// box_cols) stored row after row, no swizzle, zero fill outside.  Needs a
+// 16-byte-aligned base, cols % 4 == 0, box_cols % 4 == 0 and box_cols <=
+// 256.
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const void* base,
+                                  long long rows, long long cols,
+                                  int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || cols % 4 || box_cols % 4 ||
+      box_cols > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(base), dims, strides, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace sm90_host

@@ -31,10 +31,17 @@
 //    lower region on a tie -- the strict > over increasing r of the plain
 //    version.  No score tile goes through shared memory.  Two blocks fit
 //    an SM, so one block's epilogue overlaps the other's loads.
-//  * f32 spans (the VG call): k2_fwd_f32, fp32 FMAs on the CUDA cores, no
-//    TF32, each thread an 8 x 9 block of a 64-row tile, 16-deep
-//    shared-memory stages with the next stage's loads in registers; its
-//    scores go to shared memory and one thread per (row, image) scans them.
+//  * f32 spans (the VG call, and the contrastive call of the f32 step):
+//    k2_fwd_f32, fp32 FMAs on the CUDA cores, no TF32, each thread an 8 x 9
+//    block of a 128-row tile, 16-deep shared-memory stages with the next
+//    stage's loads in registers; its scores go to shared memory and one
+//    thread per (row, image) scans them.  Each score is one fmaf chain over
+//    D in order from 0, the order of torch's f32 GEMM, so the scores carry
+//    its bits: the contrastive loss is a hinge on them, and its gradient
+//    moves wherever a reordered sum moves a score across the margin (a
+//    3xTF32 tensor-core route, closer to the exact scores than either,
+//    turned the f32 step's gradient of the region encoder's bias away from
+//    the reference route's).
 //  At init the image encoder is zero, every score ties at 0, and the
 //  argmax is 0, as in the JAX package.
 //
@@ -83,13 +90,27 @@
 //    M D FLOP, whatever the argmax: all rows on region 0 at init cost what
 //    random ones cost.  What bounds it: the tensor-core operations (0.10
 //    ms a term at the contrastive call), not the bytes.
-//  * f32 spans (the VG call): k4_dobj_f32, a scatter with one owner thread
-//    per accumulator entry.  A block owns G images (4, or 2 where R is
-//    large) and a 128-wide slice of D, keeps their (G, R, 128) f32
-//    accumulator in shared memory, and walks a row segment in order: warp
-//    w handles image w, lane l columns 4l..4l+3.  What bounds it:
-//    instructions per (row, image) update -- a load, a shared-memory
-//    read-modify-write.
+//  * f32 spans, R = 36 (the VG call, and the contrastive call of the f32
+//    step): k4_dobj_regs, the argmax-routed sum with its accumulators in
+//    registers.  A block owns 4 images and a 256-wide slice of D; each
+//    image's 36 regions are dealt to 4 consumer warps of 9, a lane keeping
+//    8 columns of each of its regions (72 floats).  A producer warp brings
+//    32-row stages of the span slice by TMA and their argmax and g by
+//    cp.async; a consumer warp finds its regions' rows of a stage by
+//    ballots and applies each region's rows in increasing order, one fmaf
+//    a row per entry, into the registers the unrolled region index names.
+//    Stages are freed warp by warp, so uneven regions even out over the
+//    ring.  The rows are cut into shape-determined segments (2 at both
+//    calls: one wave of one block an SM).  What bounds it: the span slice
+//    read from shared memory once per (row, image), 4 bytes per FMA, and
+//    per stage and warp a ballot per region; all rows on one region (the
+//    all-ties argmax of init) load one warp of each image with every row.
+//  * f32 spans, other R: k4_dobj_f32, a scatter with one owner thread per
+//    accumulator entry.  A block owns G images (4, or 2 where R is large)
+//    and a 128-wide slice of D, keeps their (G, R, 128) f32 accumulator in
+//    shared memory, and walks a row segment in order: warp w handles image
+//    w, lane l columns 4l..4l+3.  What bounds it: instructions per (row,
+//    image) update -- a load, a shared-memory read-modify-write.
 //
 // g stays f32 in K3 and the f32 K4 (the Pallas backward rounds the
 // weighted one-hot to bf16 before its matmuls; the port's plain backward,
@@ -155,9 +176,11 @@ __global__ void segment_reduce(const float* __restrict__ partial,
 
 constexpr int BN = 144;          // region columns per block (whole images)
 
-// f32: 64 span rows a block, 128 threads of 8 x 9 scores, 16-deep stages
-constexpr int BM = 64;
-constexpr int NT = 128;
+// f32: 128 span rows a block, 256 threads of 8 x 9 scores, 16-deep stages
+// (64-row blocks read obj's tile from L2 twice as often and ran longer at
+// both calls: PERF.md section 6); the same FMA order either way
+constexpr int BM = 128;
+constexpr int NT = 256;
 constexpr int CS = BN + 4;       // f32 score tile row stride
 constexpr int FBK = 16;
 constexpr int FTM = 8, FTN = 9;
@@ -168,23 +191,25 @@ constexpr int kSmemF32 = (FBK * BM + FBK * BN) * 4;
 constexpr int kSmemScores = BM * CS * 4;
 constexpr int kSmemK2 = kSmemScores > kSmemF32 ? kSmemScores : kSmemF32;
 
-// The block's operands: span rows [row0, row0 + BM) of the flat (A*M, D)
-// span, region rows [col0, col0 + ncols) of the flat (C*R, D) obj; rows
-// and columns past the end read as zero.
-struct Tile {
-  long long row0, rows;  // first row, total span rows
-  long long col0;        // first region row (= first image * R)
-  int ncols;             // region columns of this block (<= BN)
-  int D;
-};
-
-// acc (in shared memory Cs, row-major, stride CS) = span tile . obj tile^T
-// in f32 on the CUDA cores.
-__device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
-                                             const float* __restrict__ obj,
-                                             const Tile& t, unsigned char* smem) {
-  auto As = reinterpret_cast<float (*)[BM]>(smem);              // [k][row]
-  auto Bs = reinterpret_cast<float (*)[BN]>(smem + FBK * BM * 4);  // [k][col]
+// Grid: (column tiles of CI images, row tiles of BM rows).  Dynamic shared
+// memory: kSmemK2.  The block's operands: span rows [row0, row0 + BM) of
+// the flat (A*M, D) span, region rows [col0, col0 + ncols) of the flat
+// (C*R, D) obj; rows and columns past the end read as zero.  Each score
+// is one fmaf chain over k = 0, 1, ..., D - 1 from 0.
+__global__ void __launch_bounds__(NT, 1)
+k2_fwd_f32(const float* __restrict__ span, const float* __restrict__ obj,
+           float* __restrict__ mx, int* __restrict__ am, int A, int M, int C,
+           int R, int D) {
+  extern __shared__ float4 k2f_raw[];
+  float* As = reinterpret_cast<float*>(k2f_raw);  // [k][row]
+  float* Bs = As + FBK * BM;                      // [k][col]
+  const int CI = BN / R;
+  const int c0 = blockIdx.x * CI;
+  const int nimg = min(CI, C - c0);
+  const long long row0 = (long long)blockIdx.y * BM;
+  const long long rows = (long long)A * M;
+  const long long col0 = (long long)c0 * R;
+  const int ncols = nimg * R;
   const int tx = threadIdx.x % (BN / FTN), ty = threadIdx.x / (BN / FTN);
   float acc[FTM][FTN];
 #pragma unroll
@@ -192,6 +217,7 @@ __device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
 #pragma unroll
     for (int j = 0; j < FTN; ++j) acc[i][j] = 0.f;
 
+  // the next stage's loads wait in registers while this stage multiplies
   float4 ra[FA], rb[FB];
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   auto fetch = [&](int k0) {
@@ -199,17 +225,17 @@ __device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
     for (int j = 0; j < FA; ++j) {
       const int idx = threadIdx.x + NT * j;
       const int r = idx / 4, k = k0 + (idx % 4) * 4;
-      const long long row = t.row0 + r;
-      ra[j] = (row < t.rows && k < t.D)
-                  ? *reinterpret_cast<const float4*>(span + row * t.D + k)
+      const long long row = row0 + r;
+      ra[j] = (row < rows && k < D)
+                  ? *reinterpret_cast<const float4*>(span + row * D + k)
                   : zero;
     }
 #pragma unroll
     for (int j = 0; j < FB; ++j) {
       const int idx = threadIdx.x + NT * j;
       const int c = idx / 4, k = k0 + (idx % 4) * 4;
-      rb[j] = (idx < BN * FBK / 4 && c < t.ncols && k < t.D)
-                  ? *reinterpret_cast<const float4*>(obj + (t.col0 + c) * t.D + k)
+      rb[j] = (idx < BN * FBK / 4 && c < ncols && k < D)
+                  ? *reinterpret_cast<const float4*>(obj + (col0 + c) * D + k)
                   : zero;
     }
   };
@@ -218,37 +244,37 @@ __device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
     for (int j = 0; j < FA; ++j) {
       const int idx = threadIdx.x + NT * j;
       const int r = idx / 4, k = (idx % 4) * 4;
-      As[k][r] = ra[j].x;
-      As[k + 1][r] = ra[j].y;
-      As[k + 2][r] = ra[j].z;
-      As[k + 3][r] = ra[j].w;
+      As[k * BM + r] = ra[j].x;
+      As[(k + 1) * BM + r] = ra[j].y;
+      As[(k + 2) * BM + r] = ra[j].z;
+      As[(k + 3) * BM + r] = ra[j].w;
     }
 #pragma unroll
     for (int j = 0; j < FB; ++j) {
       const int idx = threadIdx.x + NT * j;
       if (idx >= BN * FBK / 4) continue;
       const int c = idx / 4, k = (idx % 4) * 4;
-      Bs[k][c] = rb[j].x;
-      Bs[k + 1][c] = rb[j].y;
-      Bs[k + 2][c] = rb[j].z;
-      Bs[k + 3][c] = rb[j].w;
+      Bs[k * BN + c] = rb[j].x;
+      Bs[(k + 1) * BN + c] = rb[j].y;
+      Bs[(k + 2) * BN + c] = rb[j].z;
+      Bs[(k + 3) * BN + c] = rb[j].w;
     }
   };
 
   fetch(0);
   stash();
   __syncthreads();
-  for (int k0 = 0; k0 < t.D; k0 += FBK) {
-    const bool more = k0 + FBK < t.D;
-    if (more) fetch(k0 + FBK);  // in flight while this stage multiplies
+  for (int k0 = 0; k0 < D; k0 += FBK) {
+    const bool more = k0 + FBK < D;
+    if (more) fetch(k0 + FBK);
 #pragma unroll
     for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * FTM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * FTM + 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * BM + ty * FTM]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * BM + ty * FTM + 4]);
       const float a[FTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       float b[FTN];
 #pragma unroll
-      for (int j = 0; j < FTN; ++j) b[j] = Bs[kk][tx * FTN + j];
+      for (int j = 0; j < FTN; ++j) b[j] = Bs[kk * BN + tx * FTN + j];
 #pragma unroll
       for (int i = 0; i < FTM; ++i)
 #pragma unroll
@@ -260,43 +286,25 @@ __device__ __forceinline__ void mainloop_f32(const float* __restrict__ span,
       __syncthreads();
     }
   }
-  auto Cs = reinterpret_cast<float (*)[CS]>(smem);
+
+  // the scores to shared memory (over the stage), then the segmented
+  // max/argmax: one thread per (row, image), regions in order
+  float* Cs = As;
 #pragma unroll
   for (int i = 0; i < FTM; ++i)
 #pragma unroll
-    for (int j = 0; j < FTN; ++j) Cs[ty * FTM + i][tx * FTN + j] = acc[i][j];
-}
-
-// Grid: (column tiles of CI images, row tiles of BM rows).
-__global__ void __launch_bounds__(NT)
-k2_fwd_f32(const float* __restrict__ span, const float* __restrict__ obj,
-           float* __restrict__ mx, int* __restrict__ am, int A, int M, int C,
-           int R, int D) {
-  __shared__ __align__(128) unsigned char smem[kSmemK2];
-  const int CI = BN / R;                 // images per column tile
-  const int c0 = blockIdx.x * CI;
-  const int nimg = min(CI, C - c0);
-  Tile t;
-  t.row0 = (long long)blockIdx.y * BM;
-  t.rows = (long long)A * M;
-  t.col0 = (long long)c0 * R;
-  t.ncols = nimg * R;
-  t.D = D;
-  mainloop_f32(span, obj, t, smem);
+    for (int j = 0; j < FTN; ++j) Cs[(ty * FTM + i) * CS + tx * FTN + j] = acc[i][j];
   __syncthreads();
-
-  // segmented max/argmax: one thread per (row, image), regions in order
-  auto Cs = reinterpret_cast<const float (*)[CS]>(smem);
   for (int p = threadIdx.x; p < BM * nimg; p += NT) {
     const int r = p % BM, ci = p / BM;
-    const long long row = t.row0 + r;
-    if (row >= t.rows) continue;
-    const float* s = &Cs[r][ci * R];
-    float best = s[0];
+    const long long row = row0 + r;
+    if (row >= rows) continue;
+    const float* sc = &Cs[r * CS + ci * R];
+    float best = sc[0];
     int arg = 0;
     for (int q = 1; q < R; ++q)
-      if (s[q] > best) {
-        best = s[q];
+      if (sc[q] > best) {
+        best = sc[q];
         arg = q;
       }
     const long long a = row / M, m = row % M;
@@ -631,7 +639,7 @@ k3_dspan(const float* __restrict__ obj, const int* __restrict__ am,
 constexpr int K4_DS = 128;      // f32: D columns per block, 4 a lane
 constexpr int K4_ROWS = 16;     // f32: span rows whose loads are in flight together
 
-// f32 spans.  Grid: (D slices, image groups of G, row segments).  Dynamic
+// f32 spans, any R.  Grid: (D slices, image groups of G, row segments).  Dynamic
 // shared memory: G * R * K4_DS floats.  Writes the segment's partial sums
 // to out[segment] (C, R, D).  Rows go 32 at a time: lane i fetches the
 // argmax and g of row base + i; then, K4_ROWS rows at a time, every lane
@@ -685,6 +693,161 @@ k4_dobj_f32(const float* __restrict__ span, const int* __restrict__ am,
   float* o = out + ((long long)blockIdx.z * C + c) * R * D + d;
   for (int r = 0; r < R; ++r)
     *reinterpret_cast<float4*>(o + (long long)r * D) = acc[r * 32];
+}
+
+// f32 spans, R = K4R_R fixed at compile time (the model's 36):
+// accumulators in registers.  A block owns K4R_G images and a
+// K4R_DS-wide slice of D; each image's regions are dealt to K4R_R /
+// K4R_RW consumer warps of K4R_RW regions each, and lane l of a warp
+// keeps the float4 accumulators of columns 4l + 128 q (q < K4R_Q) of its
+// regions in registers.  A
+// producer warp fills a ring of K4R_STAGES stages: K4R_ROWS rows of the
+// span slice by TMA and those rows' (argmax, g) for the block's images by
+// cp.async (the rest of the producer warpgroup idles, to lend its
+// registers).  Per stage a consumer warp takes its regions in turn: a ballot
+// over the stage's rows (lane i holds row i's argmax) gives the rows of
+// region k, which it applies in increasing order, two rows an iteration --
+// one fmaf a row per accumulator entry, the register named by the
+// unrolled k.  No branch on data picks a register.  Warps free a stage on
+// their own, so their work evens out over the ring.
+constexpr int K4R_R = 36;
+constexpr int K4R_G = 4;
+constexpr int K4R_Q = 2;
+constexpr int K4R_DS = 128 * K4R_Q;
+constexpr int K4R_ROWS = 32;
+constexpr int K4R_STAGES = 6;
+constexpr int K4R_RW = 9;            // regions a warp: 4 warps an image
+static_assert(K4R_R % K4R_RW == 0, "whole region groups");
+constexpr int K4R_CONSUMERS = 32 * K4R_G * (K4R_R / K4R_RW);
+constexpr int K4R_THREADS = K4R_CONSUMERS + 128;  // + a producer warpgroup
+constexpr int K4R_SPAN_BYTES = K4R_ROWS * K4R_DS * 4;
+constexpr int K4R_STAGE_BYTES = K4R_SPAN_BYTES + K4R_G * K4R_ROWS * 8;
+constexpr int kSmemK4R = K4R_STAGES * K4R_STAGE_BYTES + 2 * K4R_STAGES * 8 + 128;
+
+// Grid: (D slices, image groups of K4R_G, row segments).  Segment z walks
+// rows [A M z / segs, A M (z + 1) / segs) and writes its partial sums to
+// out[z] (C, K4R_R, D).  Needs A M <= INT_MAX.  The launch bound caps a
+// thread at 96 registers (65,536 over 640); the producer warpgroup, of
+// which one warp works, hands its share to the consumers, whose 72
+// accumulators need 112 (an SM sub-partition holds four consumer warps
+// and one producer warp: 4 x 112 + 24 registers a lane).
+__global__ void __launch_bounds__(K4R_THREADS, 1)
+k4_dobj_regs(const __grid_constant__ CUtensorMap span_map,
+             const int* __restrict__ am, const float* __restrict__ g,
+             float* __restrict__ out, int A, int M, int C, int D, int segs) {
+  constexpr int NG = K4R_R / K4R_RW;                 // warps an image
+  constexpr int CONSUMERS = K4R_CONSUMERS;
+  extern __shared__ unsigned char k4r_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(k4r_raw) + 127) & ~uintptr_t(127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + K4R_STAGES * K4R_STAGE_BYTES);
+  uint64_t* empty = full + K4R_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cb = blockIdx.y * K4R_G;
+  const int d0 = blockIdx.x * K4R_DS;
+  const int rows = A * M;
+  const int r0 = (int)((long long)rows * blockIdx.z / segs);
+  const int r1 = (int)((long long)rows * (blockIdx.z + 1) / segs);
+  const int ntiles = (r1 - r0 + K4R_ROWS - 1) / K4R_ROWS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K4R_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);                 // producer lanes
+      sm90::mbar_init(&empty[s], CONSUMERS / 32);    // consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {  // producer warpgroup
+    sm90::setmaxnreg_dec<24>();
+    if (warp > CONSUMERS / 32) return;
+    if (lane == 0) sm90::tma_prefetch_desc(&span_map);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % K4R_STAGES;
+      if (i >= K4R_STAGES) sm90::mbar_wait(&empty[s], (i / K4R_STAGES - 1) & 1);
+      unsigned char* st = smem + s * K4R_STAGE_BYTES;
+      const int base = r0 + i * K4R_ROWS;
+      if (lane == 0) {
+        sm90::mbar_expect_tx(&full[s], K4R_SPAN_BYTES);
+        sm90::tma_load_2d(st, &span_map, &full[s], d0, base);
+      }
+      // (argmax, g) of row base + lane for each image; past r1 and past
+      // C they arrive as zeros
+      int2* ad = reinterpret_cast<int2*>(st + K4R_SPAN_BYTES);
+      const int row = base + lane;
+      const long long rowoff = row < r1 ? (long long)(row / M) * C * M + row % M : 0;
+#pragma unroll
+      for (int ck = 0; ck < K4R_G; ++ck) {
+        const bool ok = row < r1 && cb + ck < C;
+        const long long off = ok ? rowoff + (long long)(cb + ck) * M : 0;
+        sm90::cp_async4(&ad[ck * K4R_ROWS + lane].x, am + off, ok ? 4 : 0);
+        sm90::cp_async4(&ad[ck * K4R_ROWS + lane].y, g + off, ok ? 4 : 0);
+      }
+      sm90::mbar_arrive_cp_async(&full[s]);
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<112>();
+  const int ci = warp / NG, r0g = (warp % NG) * K4R_RW;  // image, first region
+  const int c = cb + ci;
+  float4 acc[K4R_RW][K4R_Q];
+#pragma unroll
+  for (int k = 0; k < K4R_RW; ++k)
+#pragma unroll
+    for (int q = 0; q < K4R_Q; ++q) acc[k][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % K4R_STAGES;
+    sm90::mbar_wait(&full[s], (i / K4R_STAGES) & 1);
+    const unsigned char* st = smem + s * K4R_STAGE_BYTES;
+    if (c < C) {
+      const float4* sp = reinterpret_cast<const float4*>(st) + lane;
+      // lane kk: row kk's region relative to this warp's first (rows past
+      // the segment are left out)
+      const int2 v = reinterpret_cast<const int2*>(st + K4R_SPAN_BYTES)[ci * K4R_ROWS + lane];
+      const int mine = i * K4R_ROWS + lane < r1 - r0 ? v.x - r0g : -1;
+      const float gl = __int_as_float(v.y);
+#pragma unroll
+      for (int k = 0; k < K4R_RW; ++k) {
+        // bit 31 - kk of `mask`: row kk is in region k; __clz finds the
+        // lowest such row
+        unsigned mask = __brev(__ballot_sync(0xffffffffu, mine == k));
+        while (mask) {
+          const int k0 = __clz(mask);
+          mask ^= 0x80000000u >> k0;
+          const bool two = mask != 0;
+          const int k1 = two ? __clz(mask) : k0;
+          if (two) mask ^= 0x80000000u >> k1;
+          const float g0 = __shfl_sync(0xffffffffu, gl, k0);
+          const float g1 = __shfl_sync(0xffffffffu, gl, k1);
+          float4 s0[K4R_Q], s1[K4R_Q];
+#pragma unroll
+          for (int q = 0; q < K4R_Q; ++q) {
+            s0[q] = sp[k0 * (K4R_DS / 4) + 32 * q];
+            s1[q] = sp[k1 * (K4R_DS / 4) + 32 * q];
+          }
+#pragma unroll
+          for (int q = 0; q < K4R_Q; ++q) acc[k][q] = fma4(g0, s0[q], acc[k][q]);
+          if (two) {
+#pragma unroll
+            for (int q = 0; q < K4R_Q; ++q) acc[k][q] = fma4(g1, s1[q], acc[k][q]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+  if (c >= C) return;
+  float* o = out + (((long long)blockIdx.z * C + c) * K4R_R + r0g) * D;
+#pragma unroll
+  for (int q = 0; q < K4R_Q; ++q) {
+    const int d = d0 + 128 * q + 4 * lane;
+    if (d >= D) continue;
+#pragma unroll
+    for (int k = 0; k < K4R_RW; ++k)
+      *reinterpret_cast<float4*>(o + (long long)k * D + d) = acc[k][q];
+  }
 }
 
 // bf16 spans: the one-hot GEMM.  A block owns K4W_ROWS region rows (flat
@@ -909,7 +1072,7 @@ extern "C" {
 
 // span (A, M, D) and obj (C, R, D) in the same dtype (bf16 if bf16, else
 // f32), contiguous; mx (A, C, M) f32, am (A, C, M) int32.  Needs
-// D % 8 == 0, 1 <= R <= 144, and for bf16 16-byte-aligned span and obj.
+// D % 8 == 0, 1 <= R <= 144, and 16-byte-aligned span and obj.
 int span_region_fwd(const void* span, const void* obj, float* mx, int* am,
                     int A, int M, int C, int R, int D, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -919,9 +1082,12 @@ int span_region_fwd(const void* span, const void* obj, float* mx, int* am,
   if (!bf16) {
     const dim3 grid(tiles(C, BN / R), tiles(rows, BM));
     if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-    k2_fwd_f32<<<grid, NT, 0, st>>>(static_cast<const float*>(span),
-                                    static_cast<const float*>(obj), mx, am, A,
-                                    M, C, R, D);
+    cudaError_t err = cudaFuncSetAttribute(
+        k2_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemK2);
+    if (err != cudaSuccess) return (int)err;
+    k2_fwd_f32<<<grid, NT, kSmemK2, st>>>(static_cast<const float*>(span),
+                                          static_cast<const float*>(obj), mx,
+                                          am, A, M, C, R, D);
     return (int)cudaGetLastError();
   }
   const dim3 grid(tiles(C, BN / R), tiles(rows, K2_ROWS));
@@ -962,11 +1128,12 @@ int span_region_dspan(const float* obj, const int* am, const float* g,
                         C, R, D, segs, st);
 }
 
-// span (A, M, D) bf16 if bf16, else f32; am (A, C, M) int32; g (A, C, M)
-// f32; partial (segs, C, R, D) f32 scratch (may be dobj when segs == 1);
-// dobj (C, R, D) f32.  Needs D % 8 == 0 and for bf16 a 16-byte-aligned
-// span.  The f32 kernel takes 4 images a block where their accumulators
-// fit a block's shared memory, else 2 (ops/span_region.py mirrors this).
+// span (A, M, D) bf16 if bf16, else f32, 16-byte aligned; am (A, C, M)
+// int32; g (A, C, M) f32; partial (segs, C, R, D) f32 scratch (may be dobj
+// when segs == 1); dobj (C, R, D) f32.  Needs D % 8 == 0.  f32 spans take
+// k4_dobj_regs where R == 36, else k4_dobj_f32 with 4 images a block where
+// their accumulators fit a block's shared memory, else 2
+// (ops/span_region.py mirrors this).
 int span_region_dobj(const void* span, const int* am, const float* g,
                      float* partial, float* dobj, int A, int M, int C, int R,
                      int D, int segs, int bf16, void* stream) {
@@ -1000,6 +1167,19 @@ int span_region_dobj(const void* span, const int* am, const float* g,
     if (err != cudaSuccess) return (int)err;
     k4_dobj_gemm<<<grid, K4W_THREADS, smem, st>>>(span_map, am, g, out, A, M, C,
                                                   R, D, segs, KI, stages);
+  } else if (R == K4R_R) {
+    if (rows > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid(tiles(D, K4R_DS), tiles(C, K4R_G), (unsigned)segs);
+    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+    CUtensorMap span_map;
+    err = sm90_host::tensor_map_f32(&span_map, span, rows, D, K4R_ROWS, K4R_DS);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(k4_dobj_regs,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemK4R);
+    if (err != cudaSuccess) return (int)err;
+    k4_dobj_regs<<<grid, K4R_THREADS, kSmemK4R, st>>>(span_map, am, g, out, A,
+                                                      M, C, D, segs);
   } else {
     const bool four = (size_t)4 * R * K4_DS * sizeof(float) <= (size_t)kSmemBlock;
     const int G = four ? 4 : 2;

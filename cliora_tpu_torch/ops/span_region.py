@@ -30,7 +30,19 @@ each image's 32-column slice of ``obj`` and its 256-row tile's argmax and
 plain gather does; where that leaves too few blocks (the VG call) the
 images are cut into ``dspan_segments`` segments whose f32 partial sums a
 second pass adds in order.  It is bound by shared-memory reads (16 bytes
-of ``obj`` per 4 FMAs) and its staging, not by its FLOP.
+of ``obj`` per 4 FMAs) and its staging, not by its FLOP.  K4 on f32 spans
+with the model's 36 regions keeps its accumulators in registers: a warp
+owns 9 regions of one image and a lane 8 columns of each, and applies a
+stage's rows region by region in increasing row order (ballots find each
+region's rows), one ``fmaf`` a row per entry, in ``dobj_segments``
+segments added in order.
+
+K2 on f32 spans sums each score over D in order from 0 with ``fmaf`` on
+the CUDA cores, the order of torch's f32 GEMM, so its scores carry that
+GEMM's bits.  The contrastive loss is a hinge on them: a sum in another
+order (a 3xTF32 route on the tensor cores was tried) moves scores across
+the margin and, with them, the f32 step's gradient of the region
+encoder's bias, a residue of cancelling terms.
 
 Numerics: the forward contracts in the span dtype (obj is cast to it)
 and accumulates in f32; the backward keeps ``g`` in f32, reads ``obj``
@@ -185,7 +197,7 @@ def supports(D: int, R: int) -> bool:
 
 
 def _check_aligned(name, t: torch.Tensor):
-    """TMA and 16-byte ``cp.async`` copies read only from a
+    """TMA, 16-byte ``cp.async`` copies and float4 loads read only from a
     16-byte-aligned base."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -205,9 +217,8 @@ def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
     obj = obj.to(span.dtype).contiguous()   # one operand dtype in the GEMM
     _check("span", span, _SPAN_DTYPES, (A, M, D), dev)
     _check("obj", obj, _SPAN_DTYPES, (C, R, D), dev)
-    if span.dtype == torch.bfloat16:
-        _check_aligned("span", span)
-        _check_aligned("obj", obj)
+    _check_aligned("span", span)
+    _check_aligned("obj", obj)
     mx = torch.empty((A, C, M), dtype=torch.float32, device=dev)
     am = torch.empty((A, C, M), dtype=torch.int32, device=dev)
     lib = _lib()
@@ -294,7 +305,15 @@ _GEMM_COLS = 200         # K4W_BN
 _GEMM_BK = 64            # K4W_BK
 _GEMM_TARGET_BLOCKS = 792
 _GEMM_MIN_TILES = 4
-# f32 spans (k4_dobj_f32): blocks of _DOBJ_GROUP images (2 where 4 images'
+# f32 spans, R = 36 (k4_dobj_regs): blocks of _REGS_GROUP images x
+# _REGS_DSLICE columns, accumulators in registers, one block an SM; enough
+# segments for one wave of _REGS_TARGET_BLOCKS blocks, at least
+# _DOBJ_MIN_ROWS rows each.
+_REGS_R = 36             # K4R_R, the R the kernel is compiled for
+_REGS_GROUP = 4          # K4R_G
+_REGS_DSLICE = 256       # K4R_DS
+_REGS_TARGET_BLOCKS = 132    # the H100's SMs
+# other R (k4_dobj_f32): blocks of _DOBJ_GROUP images (2 where 4 images'
 # accumulators exceed shared memory) x _DOBJ_DSLICE columns, walked in
 # enough segments for _DOBJ_TARGET_BLOCKS blocks, at least _DOBJ_MIN_ROWS
 # rows each.
@@ -313,8 +332,12 @@ def dobj_segments(rows: int, C: int, R: int, D: int, bf16: bool) -> int:
         base = -(-C * R // _GEMM_ROWS) * -(-D // _GEMM_COLS)
         want = max(1, round(_GEMM_TARGET_BLOCKS / base))
         return max(1, min(want, -(-rows // _GEMM_BK) // _GEMM_MIN_TILES))
-    base = -(-C // _dobj_group(R)) * -(-D // _DOBJ_DSLICE)
-    want = -(-_DOBJ_TARGET_BLOCKS // base)
+    if R == _REGS_R:
+        base = -(-C // _REGS_GROUP) * -(-D // _REGS_DSLICE)
+        want = max(1, round(_REGS_TARGET_BLOCKS / base))
+    else:
+        base = -(-C // _dobj_group(R)) * -(-D // _DOBJ_DSLICE)
+        want = -(-_DOBJ_TARGET_BLOCKS // base)
     return max(1, min(want, rows // _DOBJ_MIN_ROWS))
 
 
@@ -335,9 +358,8 @@ def span_region_dobj(span: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
     _check("span", span, _SPAN_DTYPES, (A, M, D), dev)
     _check("am", am, _I32, (A, C, M), dev)
     _check("g", g, _F32, (A, C, M), dev)
+    _check_aligned("span", span)
     bf16 = span.dtype == torch.bfloat16
-    if bf16:
-        _check_aligned("span", span)
     segs = dobj_segments(A * M, C, R, D, bf16)
     dobj = torch.empty((C, R, D), dtype=torch.float32, device=dev)
     partial = (torch.empty((segs, C, R, D), dtype=torch.float32, device=dev)

@@ -137,9 +137,13 @@ def test_supports_and_segments():
     assert sr.supports(400, 144)
     assert sr._dobj_group(113) == 4 and sr._dobj_group(114) == 2
     # bf16: 36 x 2 tiles of (128 region rows, 200 columns), 792 / 72
-    # segments of whole 64-row k tiles; f32: the scatter's 9
+    # segments of whole 64-row k tiles; f32, R = 36: 32 image groups x 2 D
+    # slices of the register kernel, round(132 / 64) segments at both calls
     assert sr.dobj_segments(128 * 210, 128, 36, 400, True) == 11
-    assert sr.dobj_segments(128 * 210, 128, 36, 400, False) == 9
+    assert sr.dobj_segments(128 * 210, 128, 36, 400, False) == 2
+    assert sr.dobj_segments(128 * 20, 128, 36, 400, False) == 2
+    # other R keep the shared-memory scatter's rule
+    assert sr.dobj_segments(128 * 210, 128, 37, 400, False) == 9
     assert sr.dobj_segments(128 * 20, 128, 36, 400, True) == 10
     assert sr.dobj_segments(A * M, C, R, D, True) == 1
     assert sr.dobj_segments(A * M, C, R, D, False) == 1
@@ -274,14 +278,16 @@ def cuda():
     (5, 7, 3, 144, 400), (4, 9, 6, 36, 16), (3, 50, 5, 36, 72),
     (64, 100, 16, 36, 400),
     # the widest D supports() takes: 32 K3 slices, K2/K4 many k tiles
-    (6, 30, 9, 36, 1024)])
+    (6, 30, 9, 36, 1024),
+    # the VG call of the train step: K3 and K4 f32 in segments
+    (128, 20, 128, 36, 400)])
 def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
     """K2: f32 max within 1e-4 of the plain version (scaled to the
     scores' magnitude), argmax equal wherever the top-2 gap exceeds that;
     bf16 argmax agreement >= 0.99.  K3/K4 at 1e-4 (f32) of the plain
     versions (K3 bf16 at 1e-2) and bitwise-equal over two calls.  obj all
-    zero: argmax 0, and K3 on that all-ties argmax with nonzero g holds the
-    same limits; g all zero: dobj zero."""
+    zero: argmax 0, and K3 and K4 on that all-ties argmax with nonzero g
+    hold the same limits; g all zero: dobj zero."""
     gen = torch.Generator(device=cuda).manual_seed(a * m + c)
     span = torch.randn(a, m, d, generator=gen, device=cuda)
     obj = torch.randn(c, r, d, generator=gen, device=cuda)
@@ -327,3 +333,9 @@ def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
         assert (zdspan.float() - pzdspan.float()).abs().max().item() \
             <= tol * max(1.0, pzdspan.float().abs().max().item())
         assert torch.equal(zdspan, sr.span_region_dspan(obj, zam, g, dt))
+        zgdobj = sr.span_region_dobj(s, zam, g, r, torch.float32)
+        pzgdobj = sr.span_region_dobj_plain(s, zam, g, r, torch.float32)
+        assert (zgdobj - pzgdobj).abs().max().item() \
+            <= 1e-4 * max(1.0, pzgdobj.abs().max().item())
+        assert torch.equal(zgdobj, sr.span_region_dobj(s, zam, g, r,
+                                                       torch.float32))
