@@ -158,14 +158,8 @@ SR_F32_ROUTES = {
         "formulation": "argmax-routed f32 FMA, one fmaf a row per entry in "
                        "row order, accumulators in registers"},
 }
-# kernels that ptxas must compile without spills
+# kernels of span_region.cu that ptxas must compile without spills
 NO_SPILL = ("k4_dobj_regs",)
-# the parent's f32 route of K4 (k4_dobj_f32, a shared-memory scatter in 9
-# row segments) at the f32 contrastive call of train_path's inputs: the
-# error of dobj summed over all regions, as a fraction of that sum's
-# largest magnitude, as the parent's run of f32_split_timing recorded it
-# (PERF.md section 6)
-PARENT_F32_REGION_SUM_REL_ERR = 3.162051336535859e-07
 # K1 at the shapes of its card-only test (B, n, D, norm): odd widths, one
 # k tile, one level, no unit norm
 K1_TEST_SHAPES = ((5, 7, 48, "unit"), (2, 2, 24, "unit"), (6, 3, 16, "none"))
@@ -1074,8 +1068,7 @@ def f32_split_timing(span, obj, g):
     one's error against the plain version: elementwise (as a fraction of
     the largest magnitude), and of the sum over all C*R region rows (as a
     fraction of that sum's largest magnitude), the reduction a bias shared
-    by every region's embedding takes of dobj.  Beside them the parent's
-    f32 route's sum error as its run of this phase recorded it."""
+    by every region's embedding takes of dobj."""
     Rr = obj.shape[1]
     _, am = span_region.span_region_fwd(span, obj)
 
@@ -1103,9 +1096,7 @@ def f32_split_timing(span, obj, g):
            "max_abs_err": err["split"], "f32_route_max_abs_err": err["f32"],
            "scale": scale, "within_rtol": err["split"] <= SR_F32_RTOL * scale,
            "region_sum_rel_err": sum_err["split"],
-           "f32_route_region_sum_rel_err": sum_err["f32"],
-           "parent_f32_route_region_sum_rel_err":
-               PARENT_F32_REGION_SUM_REL_ERR}
+           "f32_route_region_sum_rel_err": sum_err["f32"]}
     emit({"phase": "f32_split_timing", "name": "span_region_dobj",
           "span": list(span.shape), **rec})
     return rec
@@ -1254,6 +1245,10 @@ def main():
         for fn, regs in summary["by_function"].items():
             check(not fn.startswith(NO_SPILL) or regs["spill_bytes"] == 0,
                   f"{fn} spills {regs['spill_bytes']} bytes")
+    compiled = ptxas_by_function(built["span_region"]["ptxas"])
+    for name in NO_SPILL:
+        check(any(fn.split("<")[0] == name for fn in compiled),
+              f"ptxas reported no entry function {name}")
     # the host decoder builds at first use too: build it here, not inside
     # the first timed request
     t0 = time.perf_counter()

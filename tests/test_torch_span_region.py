@@ -302,6 +302,17 @@ def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
         scale = max(1.0, pmx.abs().max().item())
         if dt == torch.float32:
             torch.testing.assert_close(mx, pmx, atol=1e-4 * scale, rtol=0)
+            # f32 operands 4 bytes past a 16-byte boundary: TMA and float4
+            # loads cannot read them, so the wrappers refuse them
+            odd_span = torch.empty(a * m * d + 1, device=cuda)[1:]
+            odd_obj = torch.empty(c * r * d + 1, device=cuda)[1:]
+            with pytest.raises(ValueError, match="16-byte"):
+                sr.span_region_fwd(odd_span.view(a, m, d), obj)
+            with pytest.raises(ValueError, match="16-byte"):
+                sr.span_region_fwd(s, odd_obj.view(c, r, d))
+            with pytest.raises(ValueError, match="16-byte"):
+                sr.span_region_dobj(odd_span.view(a, m, d), am, g, r,
+                                    torch.float32)
             scores = torch.einsum("amd,crd->acmr", s, obj)
             top2 = torch.topk(scores, min(2, r), dim=-1).values
             gap = (top2[..., 0] - top2[..., -1]) > 1e-4 * scale

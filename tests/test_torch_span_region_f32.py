@@ -46,7 +46,8 @@ def _dobj_in_segment_order(span, am, g, R, segs):
     (128, 20, 16, 16, False),       # the VG call's rows, 10 segments
     (64, 100, 16, 24, False),       # the card test's many segments
     (37, 13, 37, 40, False),        # one segment
-    (128, 20, 16, 16, True)])       # every row on region 0 (init)
+    (128, 20, 16, 16, True),        # every row on region 0 (init)
+    (128, 20, 128, 400, False)])    # the VG call itself: 2 segments
 def test_dobj_segment_order_matches_plain(a, m, c, d, ties):
     """K4's f32 route in the segment count ``dobj_segments`` gives it at
     R = 36 and in its order, within 1e-4 of the plain version's scale;
@@ -69,6 +70,8 @@ def test_dobj_segment_order_matches_plain(a, m, c, d, ties):
     assert (got - want).abs().max().item() <= RTOL * scale
     if (a, m, c) == (128, 20, 16):
         assert segs == 10
+    if (a, m, c) == (128, 20, 128):
+        assert segs == 2
 
 
 def test_wrappers_refuse_unaligned_operands():
