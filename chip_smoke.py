@@ -5,12 +5,21 @@
 
 Builds every CUDA kernel of the port's paths from the sources in this
 checkout (one nvcc per source, started together), holds each against its
-plain PyTorch version on the card, and drives the port's two paths at
-full width with random weights from a seed:
+plain PyTorch version on the card, and drives the port's paths at full
+width with random weights from a seed:
 
   * the DIORA text parse through ``Trainer.parse`` (README quick-start
     model: hidden 400, embeddings 1024, vocab 10,000; requests of 128
     sentences of length 20), kernel K1;
+  * the CLIORA parse (bench.py's model below, image encoder moved off its
+    zero init): 7 requests in f32 and 7 in bf16 through
+    ``Trainer.parse(compute_loss=True, outside=True)``, each decoded,
+    its phrases grounded and its predicted spans boxed, as the JAX
+    package's parse script serves them; a small parse card vs CPU;
+    ``run_eval`` over 4 full-width batches (one ragged, one of length 2);
+    ``.npz`` and reference ``.pt`` checkpoint trips.  It launches none of
+    K1-K4 (the plain route, as under the JAX gating), and fails if any of
+    their counters moves;
   * the CLIORA train step through ``Trainer.step`` (the configuration of
     bench.py: B=128, L=20, D=400, E=1024, V=10,000, k_neg=100, 36 regions
     x 2048-d features, bf16 and f32, the fused span x region route
@@ -51,6 +60,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,13 +68,22 @@ import torch
 
 from cliora_tpu_torch import kernels, native
 from cliora_tpu_torch.analysis import trees
+from cliora_tpu_torch.analysis.eval import run_eval
+from cliora_tpu_torch.analysis.grounding import ground_phrases, span_pred_boxes
 from cliora_tpu_torch.chart.offsets import ncells
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
-from cliora_tpu_torch.training.checkpoint import flatten, params_from_numpy
+from cliora_tpu_torch.training.checkpoint import (
+    export_torch_checkpoint,
+    flatten,
+    import_torch_checkpoint,
+    load_params,
+    params_from_numpy,
+    save_params,
+)
 from cliora_tpu_torch.training.trainer import (
     TrainConfig,
     Trainer,
@@ -98,6 +117,17 @@ SR_BF16_DSPAN_RTOL = 1e-2
 ROUTE_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 ROUTE_GRAD_COS = {"float32": 0.999, "bfloat16": 0.99}
 CPU_LOSS_RTOL = 1e-5     # a small f32 step, card vs CPU
+# the CLIORA parse: requests per dtype, and a small parse card vs CPU
+# (scores as absolute error, metrics relative)
+PARSE_REQUESTS = 7
+PARSE_CPU_SCORE_ATOL = 1e-4
+PARSE_CPU_LOSS_RTOL = 1e-4
+# Stand-in grounding traffic: no source in the repo gives Flickr30K
+# Entities' phrases per caption or their lengths, so each row gets this
+# many phrases of 1-4 words on uniform random boxes.  ground_phrases' cost
+# grows with the phrase count: it is timed apart from the rest of the
+# request and reported per phrase, so it can be scaled to a real count.
+PHRASES_PER_ROW = 3
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 without the
 # tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -616,6 +646,303 @@ def parse_path(rs):
         | {"bp_agree": checked[(B, N, "bfloat16")]["bp_agree"],
            "max_abs_err": checked[(B, N, "bfloat16")]["max_abs_err"]},
     }
+
+
+# -- the CLIORA parse and its eval: no hand kernel -------------------------
+
+def random_tree(rs, lo, hi):
+    if lo == hi:
+        return lo
+    k = rs.randint(lo, hi)
+    return (random_tree(rs, lo, k), random_tree(rs, k + 1, hi))
+
+
+def eval_batch(rs, b, n, v, k, regions, feats, lengths=None):
+    """A CLIORA batch as the data pipeline makes it for eval: sentences,
+    regions, gold spans (a random tree's, root last), ``VG_GT`` phrases
+    whose gold box is one of the image's candidate ``boxes``, and the
+    length fields (``lengths`` for a ragged batch)."""
+    batch = train_batch(rs, b, n, v, k, regions, feats)
+    lens = np.full(b, n) if lengths is None else lengths
+    lo = rs.uniform(0, 400, (b, regions, 2))
+    boxes = np.concatenate([lo, lo + rs.uniform(20, 200, (b, regions, 2))],
+                           -1).astype(np.float32)
+    gt, vg = [], []
+    for row in range(b):
+        m = int(lens[row])
+        gt.append(trees.tree_to_spans(random_tree(rs, 0, m - 1)))
+        phrases = {}
+        for p in range(PHRASES_PER_ROW):
+            start = rs.randint(0, m)
+            end = min(m, start + 1 + rs.randint(0, 4))
+            phrases[f"p{p}"] = (start, end,
+                                boxes[row, rs.randint(regions)].tolist())
+        vg.append((phrases, None))
+    batch.update({"GT": gt, "VG_GT": vg, "boxes": boxes,
+                  "length": int(max(lens)), "padded_length": n,
+                  "batch_size": b, "real_size": b})
+    if lengths is not None:
+        batch["lengths"] = np.asarray(lengths, np.int32)
+    return batch
+
+
+class BatchList:
+    """An in-memory validation iterator (``run_eval``'s interface)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def get_iterator(self, random_seed=None):
+        del random_seed
+        return iter(self.batches)
+
+
+def covers(tree, spans, n):
+    """A decoded tree covers its sentence: leaves 0..n-1 in order, n - 1
+    internal spans, the root (0, n - 1) last."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, tuple):
+            for c in t:
+                walk(c)
+        else:
+            leaves.append(t)
+
+    walk(tree)
+    return (leaves == list(range(n)) and len(spans) == n - 1
+            and tuple(spans[-1]) == (0, n - 1))
+
+
+def parse_request(tr, batch):
+    """One request as the JAX package's parse script serves it
+    (scripts/parse.py:105-146): the parse with losses and the outside
+    pass, the decode, each row's phrases grounded and each predicted
+    span's box.  Returns the parse's result, its metrics, the decoded
+    rows and the host seconds of each part (``ground``: ground_phrases
+    over the stand-in phrases; ``span_boxes``: span_pred_boxes over the
+    decoded spans)."""
+    t0 = time.perf_counter()
+    res, metrics = tr.parse(batch, compute_loss=True, outside=True)
+    t1 = time.perf_counter()
+    decoded = trees.decode_batch(res["cky_bp"], batch["padded_length"])
+    t2 = time.perf_counter()
+    grounded = sum(len(ground_phrases(res["atten_score"][row],
+                                      batch["boxes"][row],
+                                      batch["VG_GT"][row][0]))
+                   for row in range(len(decoded)))
+    t3 = time.perf_counter()
+    boxes = sum(len(span_pred_boxes(res["span_scores"][row],
+                                    res["atten_score"][row],
+                                    batch["boxes"][row], set(spans[:-1]),
+                                    batch["length"]))
+                for row, (_, spans) in enumerate(decoded))
+    t4 = time.perf_counter()
+    return res, metrics, decoded, {"parse": t1 - t0, "decode": t2 - t1,
+                                   "ground": t3 - t2, "span_boxes": t4 - t3,
+                                   "phrases": grounded,
+                                   "span_boxes_n": boxes}
+
+
+def kernel_counts():
+    return {"inside_cky": inside_cky.launches, **span_region.launches}
+
+
+def cliora_parse_requests(dtype, tr, batches):
+    """PARSE_REQUESTS requests through ``Trainer.parse`` (plain route), then
+    one profiled request: host ms per part, device busy ms, idle share,
+    CUDA launches, peak memory, top kernels, losses."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = []
+    for i, batch in enumerate(batches):
+        res, metrics, decoded, t = parse_request(tr, batch)
+        n = batch["padded_length"]
+        rec = {"phase": "cliora_parse_request", "dtype": dtype, "request": i,
+               "parse_impl": res["parse_impl"], "losses": metrics,
+               "ms": sum(t[k] for k in ("parse", "decode", "ground",
+                                        "span_boxes")) * 1e3,
+               "parse_ms": t["parse"] * 1e3, "decode_ms": t["decode"] * 1e3,
+               "ground_ms": t["ground"] * 1e3,
+               "span_boxes_ms": t["span_boxes"] * 1e3,
+               "phrases": t["phrases"], "span_boxes": t["span_boxes_n"],
+               "trees_cover": all(covers(tree, spans, n)
+                                  for tree, spans in decoded),
+               "shapes": {k: list(v.shape) for k, v in res.items()
+                          if k != "parse_impl"}}
+        emit(rec)
+        check(res["parse_impl"] == "plain",
+              f"CLIORA {dtype} request {i} took route {res['parse_impl']}")
+        check(all(math.isfinite(x) for x in metrics.values()),
+              f"CLIORA {dtype} request {i}: non-finite loss {metrics}")
+        check(rec["trees_cover"], f"CLIORA {dtype} request {i}: a decoded "
+              "tree does not cover its sentence")
+        check(all(np.isfinite(res[k]).all()
+                  for k in ("atten_score", "span_scores")),
+              f"CLIORA {dtype} request {i}: non-finite scores")
+        reqs.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    warm = reqs[2:]
+    wall = statistics.median(r["ms"] for r in warm)
+    by_kernel = profile_kernels(lambda: parse_request(tr, batches[1]))
+    busy = sum(r["ms"] for r in by_kernel.values())
+    summary = {
+        "phase": "cliora_parse", "dtype": dtype, "batch": B, "n": N,
+        "requests": len(reqs), "request_ms_median_warm": wall,
+        "sentences_per_s": B / wall * 1e3,
+        "parse_ms_median_warm": statistics.median(r["parse_ms"]
+                                                  for r in warm),
+        "decode_ms_median_warm": statistics.median(r["decode_ms"]
+                                                   for r in warm),
+        "ground_ms_median_warm": statistics.median(r["ground_ms"]
+                                                   for r in warm),
+        "ground_phrases_stand_in": PHRASES_PER_ROW,
+        "ground_us_per_phrase_median_warm": statistics.median(
+            r["ground_ms"] * 1e3 / r["phrases"] for r in warm),
+        "request_ms_without_ground_median_warm": statistics.median(
+            r["ms"] - r["ground_ms"] for r in warm),
+        "span_boxes_ms_median_warm": statistics.median(r["span_boxes_ms"]
+                                                       for r in warm),
+        "request_device_busy_ms": busy if by_kernel else "not measured",
+        "idle_share": 1 - busy / wall if by_kernel else "not measured",
+        "cuda_launches_per_request": (sum(r["count"]
+                                          for r in by_kernel.values())
+                                      if by_kernel else "not measured"),
+        "max_memory_allocated_bytes": peak,
+        "top_kernels": dict(sorted(by_kernel.items(),
+                                   key=lambda kv: -kv[1]["ms"])[:5]),
+        "losses_last": reqs[-1]["losses"], "card": nvidia_smi_line()}
+    emit(summary)
+
+
+def cliora_parse_cpu_reference(rs):
+    """A small f32 CLIORA parse (B=6, L=6, D=48, R=4, F=32) on the card and
+    on the CPU from the same weights, with and without ``lengths``."""
+    cfg, tc = train_configs("float32", size=48, input_size=64, n_regions=4,
+                            obj_feat_size=32)
+    base = Trainer.build(cfg, tc, 100, seed=SEED + 4, device="cpu")
+    flat = perturbed(base.params, rs)
+    card = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    cpu = Trainer(cfg, tc, params_from_numpy(flat, "cpu"), device="cpu")
+    batch = train_batch(rs, 6, 6, 100, 7, 4, 32)
+    for tag, extra in (("full", {}),
+                       ("lengths", {"lengths": np.array([6, 3, 5, 2, 4, 6],
+                                                         np.int32)})):
+        bm = {**batch, **extra}
+        (g, gm), (w, wm) = (card.parse(bm, compute_loss=True, outside=True),
+                            cpu.parse(bm, compute_loss=True, outside=True))
+        rec = {"phase": "cpu_reference", "path": "cliora_parse",
+               "shape": [6, 6, 48], "case": tag,
+               "cells_differ": int(np.sum(g["cky_bp"] != w["cky_bp"])),
+               "atten_score_max_abs_err":
+                   float(np.abs(g["atten_score"] - w["atten_score"]).max()),
+               "span_scores_max_abs_err":
+                   float(np.abs(g["span_scores"] - w["span_scores"]).max()),
+               "losses_card": gm, "losses_cpu": wm,
+               "loss_rel_diff": {k: abs(gm[k] - wm[k]) / max(abs(wm[k]),
+                                                             1e-12)
+                                 for k in wm}}
+        emit(rec)
+        check(rec["cells_differ"] == 0,
+              f"CLIORA parse {tag}: card and CPU backpointers differ")
+        check(rec["atten_score_max_abs_err"] <= PARSE_CPU_SCORE_ATOL
+              and rec["span_scores_max_abs_err"] <= PARSE_CPU_SCORE_ATOL,
+              f"CLIORA parse {tag}: card and CPU scores differ")
+        check(set(gm) == set(wm) and all(
+            r <= PARSE_CPU_LOSS_RTOL for r in rec["loss_rel_diff"].values()),
+            f"CLIORA parse {tag}: card and CPU losses differ")
+
+
+def cliora_parse_checkpoints(cfg, tc, tr, batch):
+    """Parameter checkpoints on the card: ``save_params`` -> ``load_params``
+    and ``export_torch_checkpoint`` -> ``import_torch_checkpoint``, each
+    into a fresh trainer of other weights, then the same parse: equal
+    bits."""
+    want, _ = tr.parse(batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, save, load in (("npz", save_params, load_params),
+                                ("pt", export_torch_checkpoint,
+                                 import_torch_checkpoint)):
+            path = f"{tmp}/model.{fmt}"
+            save(path, tr.params)
+            fresh = Trainer.build(cfg, tc, V, seed=SEED + 7)
+            params, missing = load(path, fresh.params)
+            del fresh
+            got, _ = Trainer(cfg, tc, params).parse(batch)
+            rec = {"phase": "cliora_parse_checkpoint", "format": fmt,
+                   "missing": missing,
+                   "cky_bp_equal": bool(np.array_equal(got["cky_bp"],
+                                                       want["cky_bp"])),
+                   "atten_score_equal_bits": bool(np.array_equal(
+                       got["atten_score"], want["atten_score"])),
+                   "span_scores_equal_bits": bool(np.array_equal(
+                       got["span_scores"], want["span_scores"]))}
+            emit(rec)
+            check(not missing and rec["cky_bp_equal"]
+                  and rec["atten_score_equal_bits"]
+                  and rec["span_scores_equal_bits"],
+                  f"CLIORA parse after a {fmt} checkpoint trip differs")
+
+
+def cliora_parse_path(rs):
+    """The CLIORA parse at bench.py's full width: requests in f32 and bf16,
+    card vs CPU, ``run_eval``, checkpoints.  Launches none of K1-K4: a
+    CLIORA model and a parse with losses take the plain route, as under
+    the JAX gating (cliora_tpu/training/trainer.py:745-749), and the eval
+    forward materializes the span x region scores by einsum."""
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    cfg, tc = train_configs("float32")
+    base = Trainer.build(cfg, tc, V, seed=SEED)
+    check(base.device.type == "cuda", "trainer is not on the card")
+    flat = perturbed(base.params, rs)
+    del base
+    tr32 = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    tr16 = Trainer(dataclasses.replace(cfg, compute_dtype="bfloat16"), tc,
+                   tr32.params)
+    for dtype, tr in (("float32", tr32), ("bfloat16", tr16)):
+        batches = [eval_batch(rs, B, N, V, K_NEG, R, F)
+                   for _ in range(PARSE_REQUESTS)]
+        cliora_parse_requests(dtype, tr, batches)
+        torch.cuda.empty_cache()
+    cliora_parse_cpu_reference(rs)
+
+    # run_eval over 4 full-width batches: one ragged, one of length 2.
+    # The ragged lengths (uniform in 2..N) and the phrases are stand-ins,
+    # not a measured caption mix: sentences/s covers the rows longer than 2
+    ragged = rs.randint(2, N + 1, B).astype(np.int32)
+    ragged[0] = N
+    evals = [eval_batch(rs, B, N, V, K_NEG, R, F),
+             eval_batch(rs, B, N, V, K_NEG, R, F, lengths=ragged),
+             eval_batch(rs, B, 2, V, K_NEG, R, F),
+             eval_batch(rs, B, N, V, K_NEG, R, F)]
+    sentences = sum(int(np.sum((bm.get("lengths", np.full(B, bm["length"]))
+                                > 2)))
+                    for bm in evals if bm["length"] > 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_eval(tr32, BatchList(evals), seed=SEED, use_obj=True)
+    wall = time.perf_counter() - t0
+    eval_rec = {"phase": "cliora_run_eval", "dtype": "float32",
+                "batches": len(evals), "sentences": sentences,
+                "seconds": wall, "sentences_per_s": sentences / wall,
+                **metrics}
+    emit(eval_rec)
+    check(0.0 <= metrics["ccra"] <= metrics["grounding_acc"] <= 1.0
+          and 0.0 <= metrics["corpus_f1"] <= 1.0
+          and 0.0 <= metrics["sent_f1"] <= 1.0,
+          f"run_eval metrics out of range: {metrics}")
+
+    cliora_parse_checkpoints(cfg, tc, tr32, evals[0])
+    after = kernel_counts()
+    rec = {"phase": "cliora_parse_summary", "launches_before": before,
+           "launches_after": after, "wall_seconds":
+               time.perf_counter() - t_phase}
+    emit(rec)
+    check(after == before, f"the CLIORA parse launched a hand kernel: "
+          f"{before} -> {after}")
+    del tr32, tr16
+    torch.cuda.empty_cache()
 
 
 # -- the train path: K2-K4 ----------------------------------------------------
@@ -1259,6 +1586,9 @@ def main():
     rs = np.random.RandomState(SEED)
     entries = [parse_path(rs)]
     torch.cuda.empty_cache()
+    # the CLIORA parse draws from its own stream: the train path's inputs
+    # stay as they were
+    cliora_parse_path(np.random.RandomState(SEED + 1))
     entries += train_path(rs)
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -17,7 +17,13 @@ Ported so far:
   ``ops.chart_pass`` inside and outside passes -> ``training.losses``,
   with the span x region max of ``ops.span_region`` (three hand-written
   CUDA kernels, ``csrc/span_region.cu``) -> backward -> global-norm clip
-  -> Adam.
+  -> Adam;
+* the CLIORA parse and its eval -- ``Trainer.parse`` with the span x
+  region scores, charts and losses on request (the plain route) ->
+  ``analysis.trees`` decode and span F1, ``analysis.grounding``,
+  ``analysis.eval.run_eval``;
+* parameter checkpoints -- ``training.checkpoint`` ``.npz`` files shared
+  with the JAX package, and the reference's ``.pt`` state dicts.
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

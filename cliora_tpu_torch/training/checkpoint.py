@@ -1,22 +1,69 @@
-"""Flat parameter dicts (counterpart of cliora_tpu/training/checkpoint.py).
+"""Parameter checkpoints (counterpart of cliora_tpu/training/checkpoint.py).
 
 Parameters travel as flat dicts of ``/``-joined paths -> numpy arrays,
 the convention of the JAX package's ``flatten``/``unflatten_like``
 (cliora_tpu/training/checkpoint.py:57-90) and of its ``.npz``
-checkpoints.  Linear weights use the torch ``(out, in)`` layout in both
-packages, so carrying weights across is a rename-free copy: nothing is
-transposed.  Optimizer state and the reference ``.pt`` interop come with
-a later slice of the port.
+checkpoints, so a ``.npz`` written by either package loads in the other.
+Linear weights use the torch ``(out, in)`` layout in both packages, so
+carrying weights across is a rename-free copy: nothing is transposed.
+
+Interop with the reference: it saves ``{'state_dict': <torch
+name->tensor>}`` via ``torch.save``; the mapping to our paths is a rename.
+The loader keeps the reference's tolerant semantics: strip the DDP
+``module.`` prefix, ignore unknown keys, keep current values for missing
+keys (a zero-init image encoder survives a DIORA->CLIORA warm start), and
+optionally keep the current embedding table (reference:
+cliora/net/trainer.py:400-435).  Optimizer state comes with a later slice
+of the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 SEP = "/"
+
+# our path -> reference torch state_dict name (diora core; share=True
+# aliases outside_* to the same tensors in the reference state_dict)
+_TORCH_NAME = {
+    "embed/embeddings": "embed.embeddings.weight",
+    "embed/mat": "embed.mat",
+    "embed/mat1": "embed.mat1",
+    "reconstruct/mat": "reconstruct_softmax_loss.mat",
+    "img_encoder/fc/w": "img_encoder.fc.weight",
+    "img_encoder/fc/b": "img_encoder.fc.bias",
+    "img_encoder/fc_vis/w": "img_encoder.fc_vis.weight",
+    "img_encoder/fc_vis/b": "img_encoder.fc_vis.bias",
+    "diora/inside_score/mat": "diora.inside_score_func.mat",
+    "diora/inside_compose/leaf_fc/w": "diora.inside_compose_func.leaf_fc.weight",
+    "diora/inside_compose/leaf_fc/b": "diora.inside_compose_func.leaf_fc.bias",
+    "diora/inside_compose/fc0/w": "diora.inside_compose_func.h_fcs.0.weight",
+    "diora/inside_compose/fc0/b": "diora.inside_compose_func.h_fcs.0.bias",
+    "diora/inside_compose/fc1/w": "diora.inside_compose_func.h_fcs.2.weight",
+    "diora/inside_compose/fc1/b": "diora.inside_compose_func.h_fcs.2.bias",
+    "diora/outside_score/mat": "diora.outside_score_func.mat",
+    "diora/outside_compose/fc0/w": "diora.outside_compose_func.h_fcs.0.weight",
+    "diora/outside_compose/fc0/b": "diora.outside_compose_func.h_fcs.0.bias",
+    "diora/outside_compose/fc1/w": "diora.outside_compose_func.h_fcs.2.weight",
+    "diora/outside_compose/fc1/b": "diora.outside_compose_func.h_fcs.2.bias",
+    "diora/root_vector_out_h": "diora.root_vector_out_h",
+    "diora/root_mat_out": "diora.root_mat_out",
+}
+
+# share=True: the reference state_dict also holds the outside modules,
+# aliasing the inside ones
+_SHARE_ALIAS = {
+    "diora/inside_score/mat": "diora.outside_score_func.mat",
+    "diora/inside_compose/fc0/w": "diora.outside_compose_func.h_fcs.0.weight",
+    "diora/inside_compose/fc0/b": "diora.outside_compose_func.h_fcs.0.bias",
+    "diora/inside_compose/fc1/w": "diora.outside_compose_func.h_fcs.2.weight",
+    "diora/inside_compose/fc1/b": "diora.outside_compose_func.h_fcs.2.bias",
+    "diora/inside_compose/leaf_fc/w": "diora.outside_compose_func.leaf_fc.weight",
+    "diora/inside_compose/leaf_fc/b": "diora.outside_compose_func.leaf_fc.bias",
+}
 
 
 def flatten(params) -> Dict[str, np.ndarray]:
@@ -73,3 +120,75 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
         node[leaf] = torch.tensor(np.asarray(arr, dtype=np.float32),
                                   device=device)
     return tree
+
+
+def save_params(path: str, params, save_embeddings: bool = True,
+                extra: Optional[Dict[str, Any]] = None):
+    """Native ``.npz`` checkpoint of flat ``a/b/c`` paths, with ``extra``
+    values under ``__extra__/`` keys (reference: trainer.py:383-398
+    save_model)."""
+    flat = flatten(params)
+    if not save_embeddings:
+        flat = {k: v for k, v in flat.items() if "embeddings" not in k}
+    if extra:
+        for k, v in extra.items():
+            flat["__extra__" + SEP + k] = np.asarray(v)
+    np.savez(path, **flat)
+
+
+def load_params(path: str, template):
+    """Load a native ``.npz`` checkpoint into ``template``'s structure,
+    dtypes and device; returns ``(params, missing_keys)``."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files if not k.startswith("__extra__")}
+    params, missing, _ = unflatten_like(template, flat)
+    return params, missing
+
+
+def _strip_ddp_prefix(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        (k[len("module."):] if k.startswith("module.") else k): v
+        for k, v in state_dict.items()
+    }
+
+
+def import_torch_checkpoint(path: str, template,
+                            load_embeddings: bool = True):
+    """Load a reference ``torch.save({'state_dict': ...})`` checkpoint.
+
+    (reference: cliora/net/trainer.py:400-435 ``Trainer.load_model``)
+    Returns ``(params, missing_paths)``.
+    """
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state_dict = _strip_ddp_prefix(blob["state_dict"])
+    flat = {}
+    for our_key, torch_key in _TORCH_NAME.items():
+        if torch_key not in state_dict:
+            continue
+        if not load_embeddings and "embeddings" in our_key:
+            continue
+        flat[our_key] = state_dict[torch_key].detach().float().numpy()
+    params, missing, _ = unflatten_like(template, flat)
+    return params, missing
+
+
+def export_torch_checkpoint(path: str, params, save_embeddings: bool = True):
+    """Write our params as a reference-compatible torch checkpoint.
+
+    ``share=True`` models (no ``diora/outside_score``) also emit the
+    aliased ``outside_*`` names, as the reference state_dict does for its
+    shared modules.
+    """
+    flat = flatten(params)
+    shared = "diora/outside_score/mat" not in flat
+    state_dict = {}
+    for our_key, arr in flat.items():
+        if not save_embeddings and "embeddings" in our_key:
+            continue
+        torch_key = _TORCH_NAME.get(our_key)
+        if torch_key is None:
+            continue
+        state_dict[torch_key] = torch.from_numpy(np.array(arr))
+        if shared and our_key in _SHARE_ALIAS:
+            state_dict[_SHARE_ALIAS[our_key]] = state_dict[torch_key]
+    torch.save({"state_dict": state_dict}, path)

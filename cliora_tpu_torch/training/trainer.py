@@ -2,8 +2,9 @@
 
 Counterpart of cliora_tpu/training/trainer.py for the slices ported so
 far: ``Trainer.step`` (one optimizer step, or the eval step), and
-``Trainer.parse``, the decode-only text parse that scripts/parse_diora.py
-and analysis/eval.py call in the JAX package.
+``Trainer.parse``, the CKY parse of a DIORA or CLIORA model, with its
+span x region scores, charts and eval losses on request, that the parse
+scripts and analysis/eval.py call in the JAX package.
 
 The step runs embed -> image encoder -> leaf transform with region
 attention -> inside pass with region attention -> outside pass ->
@@ -346,7 +347,9 @@ class Trainer:
             total += float(torch.linalg.vector_norm(p.detach().reshape(-1)))
         return total
 
-    def _route(self, impl: Optional[str], batch_map) -> str:
+    def _route(self, impl: Optional[str], batch_map,
+               compute_loss: bool = False, with_chart: bool = False,
+               outside: Optional[bool] = None) -> str:
         impl = impl or self.cfg.parse_impl
         if impl not in ("auto", "plain", "cuda"):
             raise ValueError(f"impl={impl!r}")
@@ -355,12 +358,13 @@ class Trainer:
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError("impl='cuda' needs a trainer on a CUDA device")
         # the fused kernel implements the text-only mlp compose + soft
-        # split softmax over full-length sentences only (the JAX
-        # package's gating, cliora_tpu/training/trainer.py:745-757; a
-        # CLIORA model is refused by parse before it gets here)
+        # split softmax over full-length sentences, and returns
+        # backpointers only (the JAX package's gating,
+        # cliora_tpu/training/trainer.py:745-757)
         if impl == "cuda":
             B, n = np.shape(batch_map["sentences"])
-            if (self.cfg.aggregate != "soft"
+            if (compute_loss or with_chart or outside or self.cfg.use_obj
+                    or self.cfg.aggregate != "soft"
                     or batch_map.get("lengths") is not None
                     or not inside_cky.supports(n, self.cfg.size, B,
                                                self.cfg.compute_dtype)):
@@ -371,52 +375,75 @@ class Trainer:
     def parse(self, batch_map: Dict[str, Any], compute_loss: bool = False,
               outside: Optional[bool] = None, with_chart: bool = False,
               impl: Optional[str] = None):
-        """Eval forward with fused CKY.  Returns ``(res, metrics)``: res
-        holds numpy ``cky_bp`` (B, ncells) int32 and ``parse_impl``, the
-        route that decoded the batch ("cuda" or "plain").
+        """Eval forward with CKY.  Returns ``(res, metrics)``.
 
-        ``batch_map``: {'sentences': (B, L) int, 'lengths': optional (B,)
-        true lengths of a padded batch}.  ``impl`` overrides
-        ``cfg.parse_impl``.  The two routes group fc0's sums differently
-        (the kernel adds ``W0[:, :D] l`` and ``W0[:, D:] r``; the plain
-        chart pass takes one product over ``[l; r]``), so at f32 a near-tie
-        split can still pick another backpointer on rare cells; under bf16
-        charts the split scores also round at different points.  Published
-        trees are therefore attributed to their route.
+        ``batch_map``: {'sentences': (B, L) int, and optionally
+        'neg_samples' (k,) int (a ``(1,)`` zero when absent), 'obj_feats'
+        (B, R, F) (CLIORA), 'lengths' (B,) true lengths of a padded
+        batch}.  ``outside`` defaults to ``cfg.use_obj``; ``compute_loss``
+        forces it on (the losses need the outside chart).
 
-        A CLIORA model (``use_obj``) raises: its parse (region attention,
-        the outside pass, the span x region scores) is a later slice, and
-        a text-only parse would silently ignore its images.
+        ``res`` holds numpy arrays: ``cky_bp`` (B, ncells) int32; for a
+        CLIORA model ``atten_score`` (B, L, R), the eval-time word x region
+        scores (span and word branches mixed, cliora.py:462-466) of each
+        sentence against its own image, and ``span_scores`` (B,
+        ncells, R), the diagonal of the span x region scores; under
+        ``with_chart`` ``inside_h`` and, when the outside pass ran,
+        ``outside_h`` (B, ncells, D), as float32 whatever the chart dtype.
+        ``res["parse_impl"]`` is the route that decoded the batch: "cuda"
+        (kernel K1) or "plain" (the chart pass).  ``metrics`` maps each
+        loss of ``losses_from(..., train=False)`` to a float under
+        ``compute_loss``, else is empty.
+
+        Routing keeps the JAX package's gating: a CLIORA model, a padded
+        batch, and any request for losses, charts or the outside pass take
+        the plain route.  ``impl`` overrides ``cfg.parse_impl``.  The two
+        routes group fc0's sums differently (the kernel adds ``W0[:, :D]
+        l`` and ``W0[:, D:] r``; the plain chart pass takes one product
+        over ``[l; r]``), so at f32 a near-tie split can still pick
+        another backpointer on rare cells; under bf16 charts the split
+        scores also round at different points.  Published trees are
+        therefore attributed to their route.
         """
-        if self.cfg.use_obj:
-            raise NotImplementedError(
-                "Trainer.parse on a CLIORA model (use_obj=True): the CLIORA "
-                "parse comes with a later slice of the port")
-        if compute_loss:
-            raise NotImplementedError(
-                "compute_loss: parse-time losses come with the CLIORA "
-                "parse slice of the port")
-        if with_chart:
-            raise NotImplementedError(
-                "with_chart: chart outputs come with the CLIORA parse "
-                "slice of the port")
-        if outside:
-            raise NotImplementedError(
-                "outside=True: a parse with the outside pass comes with "
-                "the CLIORA parse slice of the port")
-        route = self._route(impl, batch_map)
-        tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
-                                 dtype=torch.int64).to(self.device)
-        x_span = embed_span(self.params["embed"], tokens)
-        dp = self.params["diora"]
+        route = self._route(impl, batch_map, compute_loss, with_chart,
+                            outside)
         if route == "cuda":
-            h0 = leaf_transform(self.cfg, dp, x_span)
+            tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
+                                     dtype=torch.int64).to(self.device)
+            dp = self.params["diora"]
+            h0 = leaf_transform(self.cfg, dp,
+                                embed_span(self.params["embed"], tokens))
             _, bp, _ = inside_cky.fused_inside_cky(
                 dp, h0, norm=self.cfg.normalize,
                 compute_dtype=self.cfg.compute_dtype)
-        else:
-            # padded buckets need no inside mask: inside values of valid
-            # cells depend only on valid cells; lengths steer the decode
-            bp = diora_forward(self.cfg, self.params, x_span, train=False,
-                               with_cky=True, outside=False).chart.cky_bp
-        return {"cky_bp": bp.cpu().numpy(), "parse_impl": route}, {}
+            return {"cky_bp": bp.cpu().numpy(), "parse_impl": route}, {}
+
+        if outside is None:
+            outside = self.cfg.use_obj
+        if compute_loss:
+            outside = True
+        if batch_map.get("neg_samples") is None:
+            batch_map = {**batch_map, "neg_samples": np.zeros(1, np.int64)}
+        tokens, neg, obj, lengths = self._place_batch(batch_map)
+        out, aux = forward_outputs(
+            self.cfg, self.tc, self.params, tokens, obj_feats=obj,
+            train=False, with_cky=True, outside=outside, lengths=lengths)
+        res = {"cky_bp": out.chart.cky_bp}
+        if with_chart:
+            res["inside_h"] = out.chart.inside_h
+            if outside:
+                res["outside_h"] = out.chart.outside_h
+        if self.cfg.use_obj:
+            ar = torch.arange(tokens.shape[0], device=self.device)
+            res["atten_score"] = out.atten_score
+            # per-example diagonal of the span x region scores
+            # (reference: cliora/scripts/parse.py:169-172)
+            res["span_scores"] = out.all_atten_score[ar, ar]
+        metrics = {}
+        if compute_loss:
+            metrics = losses_from(self.cfg, self.tc, self.params, tokens,
+                                  neg, out, aux, lengths=lengths)
+        res = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+               for k, v in res.items()}
+        res["parse_impl"] = route
+        return res, {k: float(v) for k, v in metrics.items()}

@@ -96,16 +96,6 @@ def test_parse_routes_and_refusals(trainers):
     assert ttr.parse(batch, impl="plain")[0]["parse_impl"] == "plain"
     with pytest.raises(ValueError, match="CUDA"):
         ttr.parse(batch, impl="cuda")
-    for kwargs in ({"compute_loss": True}, {"with_chart": True},
-                   {"outside": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ttr.parse(batch, **kwargs)
-    # a CLIORA model trains, but its parse is a later slice: parsing it
-    # text-only would silently ignore its images
-    cliora = Trainer.build(ModelConfig(size=D, input_size=E, use_obj=True),
-                           TrainConfig(), V, device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIORA"):
-        cliora.parse(batch)
     with pytest.raises(ValueError):
         ModelConfig(parse_impl="pallas")
 

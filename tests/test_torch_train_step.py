@@ -3,7 +3,7 @@
 parameters and batch -- losses, gradients and post-Adam parameters --
 for DIORA and for CLIORA under every span x region route; the eval step;
 ``trainable_mask``; the optax-matching clip; bf16 against f32; and the
-parse refusal of a CLIORA model."""
+``TrainConfig`` refusals."""
 
 import dataclasses
 
@@ -245,13 +245,9 @@ def test_bf16_step_tracks_f32():
             assert float(a @ b / (na * nb)) > 0.98, k
 
 
-def test_parse_refuses_a_cliora_model():
-    """A CLIORA model is not parsed text-only: its images would be
-    silently ignored."""
-    _, _, cfg, tc = _configs(True)
-    tr = tt.Trainer.build(cfg, tc, V, device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIORA"):
-        tr.parse({"sentences": _batch(True)["sentences"]})
+def test_train_config_refusals():
+    """Gradient accumulation and ZeRO-1 are refused until their slices
+    land, and the span x region route must be one the port has."""
     with pytest.raises(NotImplementedError, match="accum"):
         tt.TrainConfig(accum_steps=2)
     with pytest.raises(NotImplementedError, match="zero1"):
