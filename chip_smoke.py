@@ -24,6 +24,17 @@ width with random weights from a seed:
     bench.py: B=128, L=20, D=400, E=1024, V=10,000, k_neg=100, 36 regions
     x 2048-d features, bf16 and f32, the fused span x region route
     ``attn_impl='cuda'``), kernels K2-K4;
+  * the same steps through ``Trainer.steps`` (phase ``train_graphs``):
+    the warm-up steps, one step captured as a CUDA graph and replayed --
+    capture ms, graphed step ms over 10 steps with one sync, device-busy
+    ms and idle share of a profiled replay, graph launches and device
+    kernels a step, K2-K4 by name in the replayed step (2 each), peak
+    memory, beside the eager ``train`` summary; graphed against eager
+    steps over 3 batches in f32 and bf16 at dropout 0 and 0.1;
+    ``accum_steps=2`` at full width (K2-K4 4 times a step) and on a small
+    step against the CPU; an optimizer-state checkpoint trip whose
+    resumed step has the uninterrupted one's bits; and a capture that
+    fails raises rather than stepping eagerly;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -76,15 +87,19 @@ from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
+from cliora_tpu_torch.training import trainer as trainer_mod
 from cliora_tpu_torch.training.checkpoint import (
     export_torch_checkpoint,
     flatten,
     import_torch_checkpoint,
+    load_opt_state,
     load_params,
     params_from_numpy,
+    save_opt_state,
     save_params,
 )
 from cliora_tpu_torch.training.trainer import (
+    GRAPH_WARMUP_STEPS,
     TrainConfig,
     Trainer,
     compute_losses,
@@ -117,6 +132,22 @@ SR_BF16_DSPAN_RTOL = 1e-2
 ROUTE_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 ROUTE_GRAD_COS = {"float32": 0.999, "bfloat16": 0.99}
 CPU_LOSS_RTOL = 1e-5     # a small f32 step, card vs CPU
+# Trainer.steps as a replayed CUDA graph: the timed steps() call, and the
+# tolerances of graphed against eager steps -- the JAX package's for its
+# steps against step (tests/test_training.py:144-155)
+GRAPH_STEPS = 10
+STEPS_LOSS_RTOL = 1e-5
+STEPS_PARAM_ATOL = 1e-6
+# accum_steps=2 on a small step, card vs CPU: the losses at CPU_LOSS_RTOL,
+# the clipped gradients at SR_F32_RTOL of each leaf's largest magnitude
+# (at least 1), the updated parameters at the port's one-step check
+# against JAX (tests/test_torch_train_step.py): 1e-3 * lr on the entries
+# whose gradient exceeds 1e-6
+ONE_STEP_PARAM_ATOL_LR = 1e-3
+# host-side calls that put work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
 # the CLIORA parse: requests per dtype, and a small parse card vs CPU
 # (scores as absolute error, metrics relative)
 PARSE_REQUESTS = 7
@@ -427,7 +458,7 @@ def k1_by_function(by_kernel, b, n, d, dtype):
     return out
 
 
-def profile_kernels(fn, reps=1):
+def profile_kernels(fn, reps=1, calls=None):
     """Device ms and launches by CUDA kernel name per call of ``fn``, over
     ``reps`` calls; empty when the profiler sees no device activity.  A
     trace can miss the first kernel launched after it starts, so a short
@@ -435,7 +466,9 @@ def profile_kernels(fn, reps=1):
     result.  It can also miss a later launch, so a count per call is
     rounded from several calls, ms is the mean of the launches the trace
     holds times that count (a kernel of fewer than one launch a call
-    gets its ms over ``reps``), and ``traced`` says how many it holds."""
+    gets its ms over ``reps``), and ``traced`` says how many it holds.
+    ``calls``, a dict, receives the host-side ``LAUNCH_CALLS`` per call of
+    ``fn`` by name (the spin kernel's launch left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -453,6 +486,13 @@ def profile_kernels(fn, reps=1):
             rec = by_name.setdefault(evt.name[:60], {"ms": 0.0, "traced": 0})
             rec["ms"] += evt.device_time_total / 1e3
             rec["traced"] += 1
+        elif calls is not None and evt.name in LAUNCH_CALLS:
+            calls[evt.name] = calls.get(evt.name, 0) + 1
+    if calls is not None and calls.get("cudaLaunchKernel"):
+        calls["cudaLaunchKernel"] -= 1            # the spin kernel
+    if calls is not None:
+        for name in calls:
+            calls[name] /= reps
     for rec in by_name.values():
         rec["count"] = round(rec["traced"] / reps)
         rec["ms"] *= (rec["count"] / rec["traced"] if rec["count"]
@@ -867,8 +907,8 @@ def cliora_parse_checkpoints(cfg, tc, tr, batch):
             save(path, tr.params)
             fresh = Trainer.build(cfg, tc, V, seed=SEED + 7)
             params, missing = load(path, fresh.params)
-            del fresh
-            got, _ = Trainer(cfg, tc, params).parse(batch)
+            fresh.install_state(params)
+            got, _ = fresh.parse(batch)
             rec = {"phase": "cliora_parse_checkpoint", "format": fmt,
                    "missing": missing,
                    "cky_bp_equal": bool(np.array_equal(got["cky_bp"],
@@ -1211,6 +1251,317 @@ def train_cpu_reference(rs):
           f"card and CPU train-step losses differ: {rel}")
 
 
+# -- the graphed train path: Trainer.steps as a replayed CUDA graph -----------
+
+def finite_losses(metrics):
+    return all(math.isfinite(float(v)) for m in metrics for v in m.values())
+
+
+def graphed_train(dtype, batch, eager):
+    """``Trainer.steps`` at bench.py's configuration: the warm-up steps,
+    the capture with its first replay, ``GRAPH_STEPS`` replayed steps
+    timed by the host clock with one sync at the end (twice), and a
+    profiled replay; beside the eager ``train`` summary of the same
+    configuration and batch."""
+    cfg, tc = train_configs(dtype)
+    tr = Trainer.build(cfg, tc, V, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = tr.steps([batch] * GRAPH_WARMUP_STEPS)
+    check(finite_losses(warm), f"{dtype}: non-finite warm-up loss")
+    warm_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_WARMUP_STEPS
+    before = dict(span_region.launches)
+    t0 = time.perf_counter()
+    first = tr.steps([batch])
+    check(finite_losses(first), f"{dtype}: non-finite loss")   # syncs
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    at_capture = {k: span_region.launches[k] - before[k] for k in SR_KERNELS}
+    check(all(v == 2 for v in at_capture.values()),
+          f"{dtype}: K2/K3/K4 launches at the capture {at_capture}")
+    runs = []
+    for _ in range(2):
+        before = dict(span_region.launches)
+        t0 = time.perf_counter()
+        metrics = tr.steps([batch] * GRAPH_STEPS)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / GRAPH_STEPS)
+        check(span_region.launches == before,
+              f"{dtype}: a replay moved a kernel counter")
+    check(finite_losses(metrics), f"{dtype}: non-finite graphed loss")
+    peak = torch.cuda.max_memory_allocated()
+    calls = {}
+    by_kernel = profile_kernels(lambda: tr.steps([batch]), reps=3,
+                                calls=calls)
+    busy = sum(r["ms"] for r in by_kernel.values())
+    step_ms = statistics.mean(runs)
+    in_step = {k: own_launches(by_kernel, k)
+               for k in SR_KERNELS + ("segment_reduce",)}
+    losses = [float(m["total_loss"]) for m in warm + first + metrics]
+    summary = {
+        "phase": "train_graphs", "dtype": dtype, "batch": B, "n": N,
+        # the eager run's trainer had these weights and this batch
+        "first_loss_equals_eager": losses[0] == eager["total_loss_first"],
+        "warmup_steps": GRAPH_WARMUP_STEPS,
+        "warmup_step_ms": warm_ms,
+        "capture_and_first_replay_ms": capture_ms,
+        "graphed_step_ms_runs": runs, "graphed_step_ms": step_ms,
+        "graphed_sentences_per_s": B / step_ms * 1e3,
+        "eager_step_ms_median_warm": eager["step_ms_median_warm"],
+        "eager_pipelined_step_ms": eager["pipelined_step_ms"],
+        "eager_device_busy_ms": eager["profiled_step_device_busy_ms"],
+        "eager_cuda_launches_per_step": eager["cuda_launches_per_step"],
+        "replayed_step_device_busy_ms": busy if by_kernel else "not measured",
+        "idle_share": 1 - busy / step_ms if by_kernel else "not measured",
+        "device_kernels_per_step": sum(r["count"]
+                                       for r in by_kernel.values()),
+        "graph_launches_per_step": calls.get("cudaGraphLaunch", 0),
+        "host_launch_calls_per_step": calls,
+        "launches_per_replayed_step_profiled": in_step,
+        "launches_at_capture": at_capture,
+        "max_memory_allocated_bytes": peak,
+        "eager_max_memory_allocated_bytes":
+            eager["max_memory_allocated_bytes"],
+        "total_loss_first": losses[0], "total_loss_last": losses[-1],
+        "top_kernels": dict(sorted(by_kernel.items(),
+                                   key=lambda kv: -kv[1]["ms"])[:8]),
+    }
+    emit(summary)
+    check(all(in_step[k] == 2 for k in SR_KERNELS),
+          f"{dtype}: K2/K3/K4 in a replayed step's profile {in_step}, "
+          f"expected 2 each")
+    check(losses[-1] < losses[0], f"{dtype}: graphed total loss did not "
+          f"descend on the fixed batch ({losses[0]} -> {losses[-1]})")
+    del tr
+    torch.cuda.empty_cache()
+    return summary
+
+
+def max_rel(got, want):
+    return max(abs(float(g[k]) - float(w[k])) / max(abs(float(w[k])), 1e-12)
+               for g, w in zip(got, want) for k in w)
+
+
+def params_diff(a, b):
+    fa, fb = flatten(a.params), flatten(b.params)
+    return (max(float(np.abs(fa[k] - fb[k]).max()) for k in fa),
+            all(np.array_equal(fa[k], fb[k]) for k in fa))
+
+
+def graphed_vs_eager(flat, batches):
+    """From one set of weights, the three batches twice: eager ``step``
+    calls against ``steps`` (warm-up steps, the capture, then replays),
+    in f32 and bf16, with dropout off and at 0.1."""
+    out = []
+    seq = batches + batches
+    for dtype in ("float32", "bfloat16"):
+        for dropout in (0.0, 0.1):
+            cfg, tc = train_configs(dtype, attn_dropout=dropout)
+            eager = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+            graphed = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+            want = [eager.step(b) for b in seq]
+            got = graphed.steps(seq)
+            rel = max_rel(got, want)
+            pdiff, pbits = params_diff(graphed, eager)
+            rec = {"phase": "train_graphs_vs_eager", "dtype": dtype,
+                   "attn_dropout": dropout, "steps": len(seq),
+                   "replayed_steps": len(seq) - GRAPH_WARMUP_STEPS,
+                   "loss_max_rel_diff": rel,
+                   "losses_equal_bits": all(
+                       torch.equal(g[k], w[k]) for g, w in zip(got, want)
+                       for k in w),
+                   "param_max_abs_diff": pdiff, "params_equal_bits": pbits}
+            emit(rec)
+            check(rel <= STEPS_LOSS_RTOL and pdiff <= STEPS_PARAM_ATOL,
+                  f"{dtype} dropout {dropout}: graphed steps differ from "
+                  f"eager steps (losses {rel}, params {pdiff})")
+            out.append(rec)
+            del eager, graphed
+            torch.cuda.empty_cache()
+    return out
+
+
+def graphed_accum(batch):
+    """``accum_steps=2`` at bench.py's configuration (bf16): the warm-up
+    steps and a replayed step, each profiled: K2-K4 4 times a step."""
+    cfg, tc = train_configs("bfloat16")
+    tr = Trainer.build(cfg, dataclasses.replace(tc, accum_steps=2), V,
+                       seed=SEED)
+    recs = []
+    for i in range(GRAPH_WARMUP_STEPS + 1):
+        res = []
+        by_kernel = profile_kernels(lambda: res.extend(tr.steps([batch])))
+        in_step = {k: own_launches(by_kernel, k) for k in SR_KERNELS}
+        rec = {"phase": "train_graphs_accum", "dtype": "bfloat16",
+               "accum_steps": 2, "step": i,
+               "route": "replay" if i >= GRAPH_WARMUP_STEPS else "warm-up",
+               "losses": {k: float(v) for k, v in res[0].items()},
+               "device_busy_ms": sum(r["ms"] for r in by_kernel.values()),
+               "launches_profiled": in_step}
+        emit(rec)
+        check(finite_losses(res), f"accum step {i}: non-finite loss")
+        check(all(v == 4 for v in in_step.values()),
+              f"accum step {i}: K2/K3/K4 {in_step}, expected 4 each")
+        recs.append(rec)
+    del tr
+    torch.cuda.empty_cache()
+    return recs
+
+
+def graphed_accum_vs_cpu(rs):
+    """``accum_steps=2`` on a small f32 step (B=6, L=6, D=48): a replayed
+    step on the card (the warm-up steps, then the initial state installed
+    back in place) against an eager step on the CPU."""
+    small = dict(b=6, n=6, v=100, k=7, regions=5, feats=32)
+    cfg, tc = train_configs("float32", attn_dropout=0.0, size=48,
+                            input_size=64, n_regions=5, obj_feat_size=32)
+    tc = dataclasses.replace(tc, k_neg=7, accum_steps=2)
+    base = Trainer.build(cfg, tc, 100, seed=SEED + 3, device="cpu")
+    flat = perturbed(base.params, rs)
+    batch = train_batch(rs, **small)
+    cpu = Trainer(cfg, tc, params_from_numpy(flat, "cpu"), device="cpu")
+    zero = cpu.opt_state()
+    want = cpu.step(batch)
+    card = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    card.steps([batch] * GRAPH_WARMUP_STEPS)
+    card.install_state(params_from_numpy(flat, "cpu"), zero)
+    card.set_step(0)
+    got = card.steps([batch])[0]          # the capture and its replay
+    rel = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])),
+                                                      1e-12) for k in want}
+    grad_err, param_err = {}, {}
+    flat_cpu, flat_card = flatten(cpu.params), flatten(card.params)
+    for k, p, q in zip(flat_cpu, tree_leaves(cpu.params),
+                       tree_leaves(card.params)):
+        g, h = p.grad, q.grad.cpu()
+        grad_err[k] = float((g - h).abs().max()) / max(
+            1.0, float(g.abs().max()))
+        moved = g.abs().numpy() > 1e-6
+        param_err[k] = float(np.abs(flat_cpu[k] - flat_card[k])[moved].max(
+            initial=0.0))
+    rec = {"phase": "train_graphs_accum_cpu", "shape": [6, 6, 48],
+           "accum_steps": 2, "losses_card": {k: float(v)
+                                             for k, v in got.items()},
+           "loss_rel_diff": rel, "grad_max_rel_err": max(grad_err.values()),
+           "param_max_abs_err_moved": max(param_err.values())}
+    emit(rec)
+    check(all(r <= CPU_LOSS_RTOL for r in rel.values()),
+          f"accum card vs CPU losses differ: {rel}")
+    check(rec["grad_max_rel_err"] <= SR_F32_RTOL,
+          f"accum card vs CPU gradients differ: {grad_err}")
+    check(rec["param_max_abs_err_moved"]
+          <= ONE_STEP_PARAM_ATOL_LR * tc.lr,
+          f"accum card vs CPU parameters differ: {param_err}")
+    return rec
+
+
+def opt_state_trip(batches):
+    """Three graphed steps (bf16, dropout 0.1), then ``save_params`` and
+    ``save_opt_state``; a fresh trainer on other weights, with a graph of
+    its own, loads both in place and ``set_step(3)``; its fourth step
+    (a replay) has the bits of the uninterrupted run's fourth step."""
+    cfg, tc = train_configs("bfloat16")
+    run = Trainer.build(cfg, tc, V, seed=SEED)
+    run.steps(batches[:3])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_params(f"{tmp}/model.npz", run.params)
+        save_opt_state(f"{tmp}/model.opt.pkl", run.opt_state())
+        want = run.steps(batches[3:4])[0]
+        fresh = Trainer.build(cfg, tc, V, seed=SEED + 9)
+        fresh.steps(batches[:1] * (GRAPH_WARMUP_STEPS + 1))
+        params, missing = load_params(f"{tmp}/model.npz", fresh.params)
+        fresh.install_state(params, load_opt_state(f"{tmp}/model.opt.pkl"))
+    fresh.set_step(3)
+    got = fresh.steps(batches[3:4])[0]
+    _, pbits = params_diff(fresh, run)
+    rec = {"phase": "train_graphs_opt_state_trip", "dtype": "bfloat16",
+           "missing": missing, "losses_equal_bits": all(
+               torch.equal(got[k], want[k]) for k in want),
+           "params_equal_bits": pbits}
+    emit(rec)
+    check(not missing and rec["losses_equal_bits"] and pbits,
+          "resumed 4th step differs from the uninterrupted one")
+    del run, fresh
+    torch.cuda.empty_cache()
+    return rec
+
+
+def failed_capture_raises(rs):
+    """A step that syncs with the host cannot be captured: ``steps``
+    raises, and no eager step runs in its place (the parameters and
+    Adam's count stay as they were).  The next call captures."""
+    small = dict(b=6, n=6, v=100, k=7, regions=5, feats=32)
+    cfg, tc = train_configs("float32", attn_dropout=0.0, size=48,
+                            input_size=64, n_regions=5, obj_feat_size=32)
+    tc = dataclasses.replace(tc, k_neg=7)
+    tr = Trainer.build(cfg, tc, 100, seed=SEED + 4)
+    batch = train_batch(rs, **small)
+    tr.steps([batch] * GRAPH_WARMUP_STEPS)
+    before = flatten(tr.params)
+    clip = trainer_mod.clip_by_global_norm
+
+    def syncing_clip(grads, max_norm):
+        clipped, norm = clip(grads, max_norm)
+        float(norm)                   # a host sync: no graph can hold it
+        return clipped, norm
+
+    trainer_mod.clip_by_global_norm = syncing_clip
+    error = None
+    try:
+        tr.steps([batch])
+    except RuntimeError as err:
+        error = str(err)
+    finally:
+        trainer_mod.clip_by_global_norm = clip
+    after = flatten(tr.params)
+    count = tr.opt_state()["count"]
+    unchanged = all(np.array_equal(before[k], after[k]) for k in before)
+    retry = tr.steps([batch])
+    rec = {"phase": "train_graphs_failed_capture", "raised": error is not None,
+           "error": (error or "")[:200], "params_unchanged": unchanged,
+           "adam_count_after": count, "retry_finite": finite_losses(retry),
+           "adam_count_after_retry": tr.opt_state()["count"]}
+    emit(rec)
+    check(error is not None and unchanged and count == GRAPH_WARMUP_STEPS,
+          "a failed capture did not raise, or a step ran in its place")
+    check(rec["retry_finite"]
+          and rec["adam_count_after_retry"] == GRAPH_WARMUP_STEPS + 1,
+          "the capture after a failed one did not step")
+    return rec
+
+
+def train_graphs_path(rs, batch, eager):
+    """The graphed train path (the bench configuration in bf16 and f32,
+    counters zeroed before and read after), then its checks: graphed
+    against eager, ``accum_steps=2`` at full width and against the CPU,
+    the optimizer-state trip, a failed capture.  Returns the summaries
+    and the kernel counters of the graphed runs."""
+    t_phase = time.perf_counter()
+    for k in span_region.launches:
+        span_region.launches[k] = 0
+    graphs = {dtype: graphed_train(dtype, batch, eager[dtype])
+              for dtype in ("bfloat16", "float32")}
+    path_launches = dict(span_region.launches)
+    check(all(v >= 1 for v in path_launches.values()),
+          f"the graphed train path skipped a span_region kernel: "
+          f"{path_launches}")
+    base = Trainer.build(*train_configs("float32"), V, seed=SEED + 5,
+                         device="cpu")
+    flat = perturbed(base.params, rs)
+    del base
+    batches = [{k: torch.as_tensor(v).to("cuda") for k, v in
+                train_batch(rs, B, N, V, K_NEG, R, F).items()}
+               for _ in range(4)]
+    graphed_vs_eager(flat, batches[:3])
+    graphed_accum(batch)
+    graphed_accum_vs_cpu(rs)
+    opt_state_trip(batches)
+    failed_capture_raises(rs)
+    emit({"phase": "train_graphs_summary", "launches": path_launches,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return graphs, path_launches
+
+
 def span_region_timing(span, obj, g, am):
     """Each of K2-K4 against its plain version on the same inputs: plain,
     kernel, kernel, plain; and its CUDA launches per call, segment_reduce
@@ -1486,6 +1837,9 @@ def train_path(rs):
 
     route_vs_chunked(rs)
     train_cpu_reference(rs)
+    # the graphed path draws from its own stream: the inputs above stay
+    graphs, graph_launches = train_graphs_path(
+        np.random.RandomState(SEED + 2), batch, train)
 
     # -- timing at the main path's shapes
     timing = {}
@@ -1522,6 +1876,13 @@ def train_path(rs):
             "launches_per_step_profiled": {
                 dt: train[dt]["launches_per_step_profiled"][name]
                 for dt in train},
+            # Trainer.steps: the wrapper counts the warm-up steps' and the
+            # capture's launches; a replayed step's come from the profile
+            "graphed": {
+                "launches": graph_launches[name],
+                "launches_per_replayed_step_profiled": {
+                    dt: graphs[dt]["launches_per_replayed_step_profiled"][
+                        name] for dt in graphs}},
         }
         extra = ("segments", "smem_floor_ms", "sm_clock_max_hz")
         entry.update({k: main[k] for k in extra if k in main})

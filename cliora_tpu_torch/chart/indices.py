@@ -2,7 +2,10 @@
 
 The port's own copy of cliora_tpu/chart/indices.py's index builders,
 plus a cache of the index arrays as device tensors per
-``(n, level, device)``.
+``(n, level, device)``, and of each chart's cell coordinates and level
+offsets per ``(n, device)``: once a shape is warm, nothing on the train
+step's path copies from host memory (a CUDA graph cannot capture such a
+copy).
 
 Inside, at target level ``level`` (with ``L = n - level`` targets and
 ``N = level`` split points): target ``(level, p)`` = span
@@ -30,7 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from cliora_tpu_torch.chart.offsets import cell_index
+from cliora_tpu_torch.chart.offsets import cell_coords, cell_index, level_offsets
 
 
 def inside_index(n: int, level: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -94,16 +97,15 @@ class ChartIndex:
 
     def __init__(self):
         self._cache: Dict[Tuple[str, int, int, torch.device],
-                          Tuple[torch.Tensor, torch.Tensor]] = {}
+                          Tuple[torch.Tensor, ...]] = {}
 
     def _get(self, kind, build, n, level, device):
         device = torch.device(device)
         key = (kind, n, level, device)
         if key not in self._cache:
-            a, b = build(n, level)
-            self._cache[key] = (
-                torch.from_numpy(a.astype(np.int64)).to(device),
-                torch.from_numpy(b.astype(np.int64)).to(device))
+            self._cache[key] = tuple(
+                torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+                for a in build(n, level))
         return self._cache[key]
 
     def inside(self, n: int, level: int, device) -> Tuple[torch.Tensor,
@@ -113,6 +115,17 @@ class ChartIndex:
     def outside(self, n: int, level: int, device) -> Tuple[torch.Tensor,
                                                            torch.Tensor]:
         return self._get("outside", outside_index, n, level, device)
+
+    def coords(self, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(levels, positions)`` of every flat cell, each ``(1, ncells)``."""
+        return self._get("coords", lambda n, _: (x[None] for x in
+                                                 cell_coords(n)),
+                         n, 0, device)
+
+    def offsets(self, n: int, device) -> torch.Tensor:
+        """``(n,)`` flat index of the first cell of each level."""
+        return self._get("offsets", lambda n, _: (level_offsets(n),), n, 0,
+                         device)[0]
 
 
 # Process-wide cache; index tensors are small and never written.

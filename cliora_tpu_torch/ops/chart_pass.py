@@ -185,7 +185,7 @@ def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
         root_in = inside_h[:, -1]                       # (B, D)
     else:
         lengths = lengths.to(device=dev, dtype=torch.int64)
-        root_cell = torch.as_tensor(offs, device=dev)[lengths - 1]   # (B,)
+        root_cell = INDEX.offsets(n, dev)[lengths - 1]      # (B,)
         root_in = inside_h[torch.arange(B, device=dev), root_cell]
     if cfg.compress:
         # a bf16 chart row times the f32 matrix: f32, as JAX promotes

@@ -13,12 +13,20 @@ The loader keeps the reference's tolerant semantics: strip the DDP
 ``module.`` prefix, ignore unknown keys, keep current values for missing
 keys (a zero-init image encoder survives a DIORA->CLIORA warm start), and
 optionally keep the current embedding table (reference:
-cliora/net/trainer.py:400-435).  Optimizer state comes with a later slice
-of the port.
+cliora/net/trainer.py:400-435).
+
+Optimizer state travels in the JAX package's ``.opt.pkl`` format
+(cliora_tpu/training/checkpoint.py:112-122): a pickle whose
+``jax.tree.leaves`` are Adam's count (an int32 scalar), then ``mu`` of
+each trainable parameter in sorted key-path order, then ``nu`` in the
+same order.  The JAX loader keeps only those leaves and unflattens them
+into its own optax template, so either package's file loads in the
+other.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -67,7 +75,8 @@ _SHARE_ALIAS = {
 
 
 def flatten(params) -> Dict[str, np.ndarray]:
-    """Nested dict of tensors -> ``{"a/b/c": np.ndarray}`` on the host."""
+    """Nested dict of tensors -> ``{"a/b/c": np.ndarray}``, copied to the
+    host (a CPU tensor's array would change with the next step)."""
     out = {}
 
     def walk(prefix, node):
@@ -75,7 +84,7 @@ def flatten(params) -> Dict[str, np.ndarray]:
             for k, v in node.items():
                 walk(prefix + (str(k),), v)
         else:
-            out[SEP.join(prefix)] = node.detach().cpu().numpy()
+            out[SEP.join(prefix)] = node.detach().to("cpu", copy=True).numpy()
 
     walk((), params)
     return out
@@ -108,18 +117,22 @@ def unflatten_like(template, flat: Dict[str, np.ndarray]):
     return rebuild((), template), missing, used
 
 
-def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
-    """Flat ``{"a/b/c": array}`` (e.g. the JAX package's ``flatten`` of
-    its params) -> nested dict of float32 tensors on ``device``."""
+def _nest(flat: Dict[str, np.ndarray], leaf) -> dict:
+    """Flat ``{"a/b/c": array}`` -> nested dict of ``leaf(f32 array)``."""
     tree: dict = {}
     for key, arr in flat.items():
-        *path, leaf = key.split(SEP)
+        *path, name = key.split(SEP)
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = torch.tensor(np.asarray(arr, dtype=np.float32),
-                                  device=device)
+        node[name] = leaf(np.asarray(arr, dtype=np.float32))
     return tree
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
+    """Flat ``{"a/b/c": array}`` (e.g. the JAX package's ``flatten`` of
+    its params) -> nested dict of float32 tensors on ``device``."""
+    return _nest(flat, lambda a: torch.tensor(a, device=device))
 
 
 def save_params(path: str, params, save_embeddings: bool = True,
@@ -192,3 +205,87 @@ def export_torch_checkpoint(path: str, params, save_embeddings: bool = True):
         if shared and our_key in _SHARE_ALIAS:
             state_dict[_SHARE_ALIAS[our_key]] = state_dict[torch_key]
     torch.save({"state_dict": state_dict}, path)
+
+
+def save_opt_state(path: str, opt_state: Dict[str, Any]):
+    """Write ``Trainer.opt_state()`` (``{"count", "mu", "nu"}``, by
+    parameter path) as ``(count, mu, nu)``: plain tuples, dicts and numpy
+    arrays, whose ``jax.tree.leaves`` (dict keys sorted) are the leaves of
+    the JAX package's masked-Adam state in its order."""
+    blob = (np.asarray(opt_state["count"], dtype=np.int32),
+            _nest(opt_state["mu"], np.asarray),
+            _nest(opt_state["nu"], np.asarray))
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+
+
+class _OptaxState(tuple):
+    """Stand-in for an optax state class (a NamedTuple): keeps its fields
+    in order; the empty ones (``EmptyState``, ``MaskedNode``) hold no
+    leaves."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+_NUMPY_GLOBALS = {
+    (mod, name)
+    for core in ("numpy.core", "numpy._core")
+    for mod, name in ((core + ".multiarray", "_reconstruct"),
+                      (core + ".multiarray", "scalar"),
+                      (core + ".numeric", "_frombuffer"))
+} | {("numpy", "ndarray"), ("numpy", "dtype")}
+
+
+class _OptStateUnpickler(pickle.Unpickler):
+    """Reads numpy arrays, and optax's state classes as stand-ins: optax
+    (and with it JAX) is never imported.  Any other class is refused."""
+
+    def find_class(self, module, name):
+        if module == "optax" or module.startswith("optax."):
+            return type(name, (_OptaxState,), {})
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name} has no place in an optimizer-state file")
+
+
+def load_opt_state(path: str) -> Dict[str, Any]:
+    """Read an ``.opt.pkl`` written by either package into
+    ``{"count": int, "mu": {path: array}, "nu": {path: array}}``, for
+    ``Trainer.install_state``.
+
+    The tree is walked in ``jax.tree.leaves`` order (dict keys sorted,
+    state fields in order): the one leaf outside a dict is the count, the
+    first dict of parameters is ``mu`` and the second ``nu``, each read
+    by key path, never by position."""
+    with open(path, "rb") as f:
+        tree = _OptStateUnpickler(f).load()
+    scalars, dicts = [], []
+
+    def flat_dict(prefix, node, out):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                flat_dict(prefix + (str(k),), node[k], out)
+        elif isinstance(node, tuple):     # a masked (frozen) leaf: empty
+            for x in node:
+                flat_dict(prefix, x, out)
+        else:
+            out[SEP.join(prefix)] = np.asarray(node)
+
+    def walk(node):
+        if isinstance(node, dict):
+            dicts.append({})
+            flat_dict((), node, dicts[-1])
+        elif isinstance(node, (tuple, list)):
+            for x in node:
+                walk(x)
+        else:
+            scalars.append(np.asarray(node))
+
+    walk(tree)
+    if len(scalars) != 1 or scalars[0].ndim != 0 or len(dicts) != 2:
+        raise ValueError(
+            f"{path}: expected an Adam count and two parameter trees, found "
+            f"{len(scalars)} scalars and {len(dicts)} trees")
+    return {"count": int(scalars[0]), "mu": dicts[0], "nu": dicts[1]}

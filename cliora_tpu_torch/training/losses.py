@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from cliora_tpu_torch.chart.offsets import cell_coords, level_offsets
+from cliora_tpu_torch.chart.indices import INDEX
 
 MIN_VAL = 1e-8
 
@@ -22,17 +22,11 @@ def word_mask(lengths: torch.Tensor, L: int) -> torch.Tensor:
             < lengths[:, None])
 
 
-def _coords(n: int, device):
-    lev, pos = cell_coords(n)
-    return (torch.as_tensor(lev, dtype=torch.int64, device=device)[None],
-            torch.as_tensor(pos, dtype=torch.int64, device=device)[None])
-
-
 def valid_cell_mask(n: int, lengths: torch.Tensor) -> torch.Tensor:
     """(B, ncells(n)) bool: the cell's span lies inside ``[0, m)``, i.e.
     the chart value at this cell is meaningful for an example of true
     length ``m`` (pad cells hold garbage in padded length buckets)."""
-    lev, pos = _coords(n, lengths.device)
+    lev, pos = INDEX.coords(n, lengths.device)
     return pos + lev + 1 <= lengths[:, None]
 
 
@@ -46,7 +40,7 @@ def contrastive_cell_mask(n: int, lengths: torch.Tensor) -> torch.Tensor:
     its *true-chart* level-major rank ``level*m - level(level-1)/2 + pos``
     below ``(m(m+1)/2)//2``.
     """
-    lev, pos = _coords(n, lengths.device)
+    lev, pos = INDEX.coords(n, lengths.device)
     m = lengths[:, None].to(torch.int64)                  # (B, 1)
     valid = pos + lev + 1 <= m
     rank = lev * m - lev * (lev - 1) // 2 + pos
@@ -56,8 +50,7 @@ def contrastive_cell_mask(n: int, lengths: torch.Tensor) -> torch.Tensor:
 
 def root_cell_index(n: int, lengths: torch.Tensor) -> torch.Tensor:
     """(B,) flat index of the true root cell (level ``m-1``, pos 0)."""
-    offs = torch.as_tensor(level_offsets(n), device=lengths.device)
-    return offs[lengths.to(torch.int64) - 1]
+    return INDEX.offsets(n, lengths.device)[lengths.to(torch.int64) - 1]
 
 
 def reconstruction_loss(recon_params, embed_table: torch.Tensor,

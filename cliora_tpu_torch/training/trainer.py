@@ -1,10 +1,14 @@
 """Training engine: loss assembly, the masked-Adam step, eval and parse.
 
 Counterpart of cliora_tpu/training/trainer.py for the slices ported so
-far: ``Trainer.step`` (one optimizer step, or the eval step), and
-``Trainer.parse``, the CKY parse of a DIORA or CLIORA model, with its
-span x region scores, charts and eval losses on request, that the parse
-scripts and analysis/eval.py call in the JAX package.
+far: ``Trainer.step`` (one optimizer step, or the eval step),
+``Trainer.steps`` (K same-shape optimizer steps; on the card, one train
+step captured as a CUDA graph and replayed), gradient accumulation
+(``TrainConfig.accum_steps``), the step counter and state installation a
+resumed run needs, and ``Trainer.parse``, the CKY parse of a DIORA or
+CLIORA model, with its span x region scores, charts and eval losses on
+request, that the parse scripts and analysis/eval.py call in the JAX
+package.
 
 The step runs embed -> image encoder -> leaf transform with region
 attention -> inside pass with region attention -> outside pass ->
@@ -65,8 +69,14 @@ class TrainConfig:
     # (B, B, cells, R) tensor (reference semantics); 'chunked' and 'cuda'
     # fuse the max (ops/span_region.py), 'cuda' with kernels K2-K4
     attn_impl: str = "einsum"
-    # gradient accumulation and ZeRO-1 come with later slices of the port
+    # gradient accumulation: split each batch into this many sequential
+    # microbatches, average their gradients and metrics, apply ONE update.
+    # Batch-coupled losses (the VG and contrastive negatives are the other
+    # examples of the batch) see microbatch-sized batches, so this equals
+    # `accum_steps` small-batch gradients under one averaged update, not
+    # one big-batch step (cliora_tpu/training/trainer.py:64-73)
     accum_steps: int = 1
+    # ZeRO-1 comes with the parallelism slice of the port
     zero1: bool = False
 
     def __post_init__(self):
@@ -75,10 +85,8 @@ class TrainConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}, expected one "
                              f"of {ATTN_IMPLS}")
-        if self.accum_steps != 1:
-            raise NotImplementedError(
-                "accum_steps != 1: gradient accumulation comes with a later "
-                "slice of the port")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps={self.accum_steps}")
         if self.zero1:
             raise NotImplementedError(
                 "zero1: sharded optimizer state comes with the parallelism "
@@ -115,6 +123,15 @@ def tree_leaves(tree) -> List:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> List[str]:
+    """The ``/``-joined key path of each leaf, in :func:`tree_leaves`
+    order (the keys of ``checkpoint.flatten``)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
     """``g * max_norm / norm`` for every gradient when the global norm is
     at least ``max_norm``, else ``g`` -- ``optax.clip_by_global_norm``'s
@@ -127,15 +144,30 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
     return [torch.where(keep, g, g / norm * max_norm) for g in grads], norm
 
 
-def make_optimizer(tc: TrainConfig, params, mask) -> torch.optim.Adam:
+def make_optimizer(tc: TrainConfig, params, mask,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam(lr, (0.9, 0.999), 1e-8) over the trainable parameters only;
     the clip (:func:`clip_by_global_norm`) runs before it in
     ``Trainer.step``.  ``torch.optim.Adam``'s update is optax's
-    ``adam``: ``m_hat / (sqrt(v_hat) + eps)``."""
+    ``adam``: ``m_hat / (sqrt(v_hat) + eps)``.  ``capturable`` keeps the
+    step count on the device, so that a CUDA graph can capture the update
+    (a CUDA trainer's eager and graphed steps share this one optimizer).
+
+    The state is made here, not at the first step, so that a checkpoint
+    can be installed before any step and a captured graph sees the
+    tensors every later step updates in place."""
     trainable = [p for p, m in zip(tree_leaves(params), tree_leaves(mask))
                  if m]
-    return torch.optim.Adam(trainable, lr=tc.lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+    opt = torch.optim.Adam(trainable, lr=tc.lr, betas=(0.9, 0.999),
+                           eps=1e-8, capturable=capturable)
+    for p in trainable:
+        opt.state[p] = {
+            "step": (torch.zeros((), dtype=torch.float32, device=p.device)
+                     if capturable else torch.tensor(0.0)),
+            "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p),
+        }
+    return opt
 
 
 def forward_outputs(cfg: ModelConfig, tc: TrainConfig, params,
@@ -237,6 +269,42 @@ def _default_device() -> torch.device:
 # seed of the dropout stream; step k draws from a generator seeded with
 # DROPOUT_SEED + k
 DROPOUT_SEED = 1729
+# eager steps of each new batch shape, on a side stream, before
+# ``Trainer.steps`` captures its graph (PyTorch's whole-network capture
+# warms up so): they are real steps of the batches given
+GRAPH_WARMUP_STEPS = 2
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph, with the static input
+    buffers that each replay copies its batch into.
+
+    The dropout generator is registered with the graph and reseeded
+    before each replay, so replay k draws what an eager step with the
+    generator of step k draws.  Everything else the step writes (the
+    parameters, Adam's state, its device step count) lives outside the
+    graph's memory pool and is updated in place, so it stays valid for
+    every replay."""
+
+    def __init__(self, trainer: "Trainer", batch):
+        self.inputs = [None if x is None else x.clone() for x in batch]
+        self.generator = torch.Generator(device=trainer.device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        with torch.cuda.graph(self.graph):
+            metrics = trainer._train_step(*self.inputs, self.generator)
+            self.names = list(metrics)
+            self.out = torch.stack([metrics[k].float() for k in self.names])
+
+    def replay(self, batch, seed: int) -> Dict[str, torch.Tensor]:
+        for dst, src in zip(self.inputs, batch):
+            if dst is not None:
+                dst.copy_(src)
+        self.generator.manual_seed(seed)
+        self.graph.replay()
+        # the next replay overwrites the graph's outputs
+        vals = self.out.clone()
+        return {k: vals[i] for i, k in enumerate(self.names)}
 
 
 class Trainer:
@@ -256,10 +324,17 @@ class Trainer:
         self.mask = trainable_mask(tc, self.params)
         for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
             p.requires_grad_(m)
-        self.optimizer = make_optimizer(tc, self.params, self.mask)
+        self.optimizer = make_optimizer(
+            tc, self.params, self.mask,
+            capturable=self.device.type == "cuda")
         # host-side step counter for the dropout stream: reading a device
         # counter would sync every step
         self._host_step = 0
+        # Trainer.steps on the card: one graph per batch shape key, and the
+        # warm-up steps taken so far for a key without one
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._warmed: Dict[tuple, int] = {}
+        self._side_stream = None
 
     @classmethod
     def build(cls, cfg: ModelConfig, tc: TrainConfig, embeddings,
@@ -312,7 +387,8 @@ class Trainer:
         materializes the attention scores and mixes ``vg_atten`` as at
         eval (cliora.py:462-464).  Returns a dict of device-resident
         scalar tensors: nothing here waits for the device (float() them
-        when logging).
+        when logging).  This step always runs eagerly; ``steps`` is the
+        graphed route.
         """
         tokens, neg, obj, lengths = self._place_batch(batch_map)
         if not train:
@@ -323,20 +399,187 @@ class Trainer:
             return metrics
         if generator is None:
             generator = self.dropout_generator(self._host_step)
+        metrics = self._train_step(tokens, neg, obj, lengths, generator)
         self._host_step += 1
+        return metrics
+
+    def _train_step(self, tokens, neg, obj, lengths, generator):
+        """Forward, backward, clip and Adam on placed tensors; the body of
+        both the eager and the captured step.  With ``accum_steps`` A > 1
+        the batch is cut into A microbatches whose gradients accumulate
+        from zero and, with the metrics, are divided by A before the one
+        clip and update (cliora_tpu/training/trainer.py:356-411); each
+        microbatch draws the next stretch of the step's dropout stream."""
+        A = self.tc.accum_steps
+        B = tokens.shape[0]
+        if B % A:
+            raise ValueError(f"batch {B} not divisible by accum_steps {A}")
+        b = B // A
         trainable = self.optimizer.param_groups[0]["params"]
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(
-            self.cfg, self.tc, self.params, tokens, neg, obj_feats=obj,
-            generator=generator, train=True, lengths=lengths)
-        total.backward()
+        metrics = None
+        for i in range(A):
+            part = slice(i * b, (i + 1) * b)
+            total, m = compute_losses(
+                self.cfg, self.tc, self.params, tokens[part], neg,
+                obj_feats=None if obj is None else obj[part],
+                generator=generator, train=True,
+                lengths=None if lengths is None else lengths[part])
+            total.backward()
+            m = {k: v.detach() for k, v in m.items()}
+            metrics = m if metrics is None else {
+                k: metrics[k] + m[k] for k in m}
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in trainable]
+        if A > 1:
+            grads = [g / A for g in grads]
+            metrics = {k: v / A for k, v in metrics.items()}
         clipped, _ = clip_by_global_norm(grads, self.tc.grad_clip)
         for p, g in zip(trainable, clipped):
             p.grad = g
         self.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
+
+    def _graph_key(self, batch) -> tuple:
+        """The shapes a captured step is specialised to: B, L, k_neg, R,
+        F (None without regions), ``lengths`` given or not, and
+        ``accum_steps``."""
+        tokens, neg, obj, lengths = batch
+        return (*tokens.shape, neg.shape[0],
+                *((None, None) if obj is None else obj.shape[1:]),
+                lengths is not None, self.tc.accum_steps)
+
+    def steps(self, batch_maps) -> List[Dict[str, torch.Tensor]]:
+        """``len(batch_maps)`` train steps on batches of one shape, which
+        leave exactly the state of as many ``step`` calls.  Returns one
+        dict of device-resident scalars per step, with no host sync.
+
+        On a CUDA trainer one train step (forward, backward, clip, Adam) is
+        captured as a CUDA graph per shape key (:meth:`_graph_key`) and
+        replayed for each batch: the batch is copied into the graph's
+        static inputs and the dropout generator reseeded to the step's
+        seed.  The first ``GRAPH_WARMUP_STEPS`` batches of a new shape run
+        eagerly on a side stream before the capture.  A capture that fails
+        raises; no eager step runs in its place.  On the CPU the steps run
+        eagerly.  (reference: cliora_tpu/training/trainer.py:670-707
+        ``steps``, :425-448 ``multi_step``)
+        """
+        if not batch_maps:
+            raise ValueError("steps needs at least one batch")
+        placed = [self._place_batch(bm) for bm in batch_maps]
+        keys = {self._graph_key(b) for b in placed}
+        if len(keys) != 1:
+            raise ValueError(f"steps needs batches of one shape: {keys}")
+        (key,) = keys
+        out = []
+        for batch in placed:
+            if self.device.type == "cuda":
+                out.append(self._graphed_step(key, batch))
+            else:
+                out.append(self._train_step(
+                    *batch, self.dropout_generator(self._host_step)))
+            self._host_step += 1
+        return out
+
+    def _graphed_step(self, key, batch):
+        graph = self._graphs.get(key)
+        if graph is None:
+            warmed = self._warmed.get(key, 0)
+            if warmed < GRAPH_WARMUP_STEPS:
+                self._warmed[key] = warmed + 1
+                return self._side_stream_step(batch)
+            try:
+                graph = _StepGraph(self, batch)
+            except RuntimeError as err:
+                raise RuntimeError(
+                    f"CUDA graph capture of the train step failed for shape "
+                    f"key {key}; no step ran") from err
+            self._graphs[key] = graph
+        return graph.replay(batch, DROPOUT_SEED + self._host_step)
+
+    def _side_stream_step(self, batch):
+        """An eager step on a side stream, ordered after and before the
+        current stream's work."""
+        current = torch.cuda.current_stream(self.device)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = self._train_step(
+                *batch, self.dropout_generator(self._host_step))
+        current.wait_stream(side)
+        return metrics
+
+    def _trainable(self):
+        """``(path, parameter)`` of each trainable parameter, in the
+        optimizer's order."""
+        return [(k, p) for k, p, m in zip(tree_paths(self.params),
+                                          tree_leaves(self.params),
+                                          tree_leaves(self.mask)) if m]
+
+    def set_step(self, n: int):
+        """Restore the step counter for exact resume: the host counter of
+        the dropout stream and Adam's step count on every trainable
+        parameter, written in place (cliora_tpu/training/trainer.py:561-571
+        ``set_step``)."""
+        self._host_step = int(n)
+        for _, p in self._trainable():
+            self.optimizer.state[p]["step"].fill_(float(n))
+
+    def opt_state(self) -> Dict[str, Any]:
+        """Adam's state on the host: ``{"count": int, "mu": {path: array},
+        "nu": {path: array}}`` over the trainable parameters, the form
+        ``checkpoint.save_opt_state`` writes, copied to the host.  Syncs
+        with the device."""
+        def host(t):      # a copy: the next step updates ``t`` in place
+            return t.detach().to("cpu", copy=True).numpy()
+
+        out = {"count": 0, "mu": {}, "nu": {}}
+        for path, p in self._trainable():
+            st = self.optimizer.state[p]
+            out["count"] = int(st["step"])
+            out["mu"][path] = host(st["exp_avg"])
+            out["nu"][path] = host(st["exp_avg_sq"])
+        return out
+
+    @torch.no_grad()
+    def install_state(self, params=None, opt_state=None):
+        """Write loaded parameters (a tree shaped like ``self.params``, of
+        tensors or arrays) and optimizer state (the form of
+        :meth:`opt_state`; its count becomes every parameter's Adam step)
+        into this trainer's tensors with ``copy_``.  Nothing is rebound,
+        so captured graphs stay valid (cliora_tpu/training/trainer.py:
+        531-559 ``install_state``, without a mesh).  Raises
+        ``ValueError`` on a missing path or a shape that differs."""
+        def put(dst, src, what):
+            src = torch.as_tensor(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{what}: shape {tuple(src.shape)} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+
+        if params is not None:
+            flat = dict(zip(tree_paths(params), tree_leaves(params)))
+            for path, p in zip(tree_paths(self.params),
+                               tree_leaves(self.params)):
+                if path not in flat:
+                    raise ValueError(f"params: no {path}")
+                put(p, flat[path], path)
+        if opt_state is not None:
+            trainable = self._trainable()
+            names = {k for k, _ in trainable}
+            for part in ("mu", "nu"):
+                if set(opt_state[part]) != names:
+                    raise ValueError(
+                        f"opt_state {part}: paths "
+                        f"{sorted(set(opt_state[part]) ^ names)} do not "
+                        f"match the trainable parameters")
+            for path, p in trainable:
+                st = self.optimizer.state[p]
+                put(st["exp_avg"], opt_state["mu"][path], "mu/" + path)
+                put(st["exp_avg_sq"], opt_state["nu"][path], "nu/" + path)
+                st["step"].fill_(float(opt_state["count"]))
 
     def parameter_norm(self, trainable_only: bool = True) -> float:
         """Sum of per-parameter L2 norms (reference: trainer.py:360-367)."""

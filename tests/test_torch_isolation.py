@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX, optax nor the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU."""
 
 import os
 import re
@@ -24,7 +25,7 @@ mods = [m.name for m in pkgutil.walk_packages(cliora_tpu_torch.__path__,
 for m in mods:
     __import__(m)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "cliora_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "cliora_tpu"))
 print(len(mods), bad)
 """
 
@@ -39,8 +40,8 @@ def test_import_every_module_without_jax():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|cliora_tpu)\b(?!_)"
-    r"|from\s+(jax|jaxlib|cliora_tpu)\b(?!_))", re.M)
+    r"^\s*(import\s+(jax|jaxlib|optax|cliora_tpu)\b(?!_)"
+    r"|from\s+(jax|jaxlib|optax|cliora_tpu)\b(?!_))", re.M)
 
 
 def test_sources_have_no_jax_import():

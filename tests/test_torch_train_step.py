@@ -246,10 +246,9 @@ def test_bf16_step_tracks_f32():
 
 
 def test_train_config_refusals():
-    """Gradient accumulation and ZeRO-1 are refused until their slices
-    land, and the span x region route must be one the port has."""
-    with pytest.raises(NotImplementedError, match="accum"):
-        tt.TrainConfig(accum_steps=2)
+    """ZeRO-1 is refused until its slice lands, and the span x region
+    route must be one the port has (gradient accumulation landed:
+    tests/test_torch_accum.py)."""
     with pytest.raises(NotImplementedError, match="zero1"):
         tt.TrainConfig(zero1=True)
     with pytest.raises(ValueError):
