@@ -64,9 +64,14 @@ before the last line; without a CUDA device it exits non-zero at once.
 No check falls back to the CPU.
 """
 
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
+import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -82,11 +87,16 @@ from cliora_tpu_torch.analysis import trees
 from cliora_tpu_torch.analysis.eval import run_eval
 from cliora_tpu_torch.analysis.grounding import ground_phrases, span_pred_boxes
 from cliora_tpu_torch.chart.offsets import ncells
+from cliora_tpu_torch.data.prefetch import device_prefetch
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
+from cliora_tpu_torch.scripts import common as cli_common
+from cliora_tpu_torch.scripts import parse as cli_parse
+from cliora_tpu_torch.scripts import parse_diora as cli_parse_diora
+from cliora_tpu_torch.scripts import train as cli_train
 from cliora_tpu_torch.training import trainer as trainer_mod
 from cliora_tpu_torch.training.checkpoint import (
     export_torch_checkpoint,
@@ -105,6 +115,7 @@ from cliora_tpu_torch.training.trainer import (
     compute_losses,
     tree_leaves,
 )
+from cliora_tpu_torch.utils import flags as cli_flags
 
 B, N, D, E, V = 128, 20, 400, 1024, 10_000
 K_NEG, R, F = 100, 36, 2048        # bench.py:42
@@ -219,6 +230,23 @@ SR_F32_ROUTES = {
         "formulation": "argmax-routed f32 FMA, one fmaf a row per entry in "
                        "row order, accumulators in registers"},
 }
+# phase cli: a synthetic grounded corpus in the Flickr layout
+# (tools/make_synthetic_flickr.py: 4-16 tokens, up to 12 regions an image
+# padded to 36, 2048-d features), and the shell scripts' flags less their
+# paths (scripts/train_diora.sh, scripts/train_cliora.sh), each run with
+# graphed steps in same-shape runs of 10
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_TRAIN, CLI_TEST = 4096, 512
+_SCRIPT_FLAGS = ["--seed", "1234", "--arch", "mlp", "--batch_size", "32",
+                 "--emb", "none", "--hidden_dim", "400", "--k_neg", "100",
+                 "--log_every_batch", "100", "--normalize", "unit",
+                 "--reconstruct_mode", "softmax",
+                 "--train_filter_length", "40"]
+DIORA_FLAGS = _SCRIPT_FLAGS + ["--lr", "5e-4"]
+CLIORA_FLAGS = _SCRIPT_FLAGS + ["--lr", "1e-5", "--obj_feats", "--use_contr",
+                                "--alpha_contr", "1.0", "--vg_loss",
+                                "--alpha_vg", "1.0"]
+CLI_RUN_FLAGS = ["--steps_per_call", "10", "--batch_order", "blocked"]
 # kernels of span_region.cu that ptxas must compile without spills
 NO_SPILL = ("k4_dobj_regs",)
 # K1 at the shapes of its card-only test (B, n, D, norm): odd widths, one
@@ -1381,6 +1409,40 @@ def graphed_vs_eager(flat, batches):
     return out
 
 
+def graphed_two_keys(rs):
+    """Two shape keys (L = 6 and 8) replayed alternately, their graphs in
+    the trainer's one shared memory pool, against eager steps of the same
+    batches in the same order (B=6, D=48, f32, dropout 0.1): each key's
+    warm-up steps, capture and two replays."""
+    small = dict(b=6, v=100, k=7, regions=5, feats=32)
+    cfg, tc = train_configs("float32", size=48, input_size=64,
+                            n_regions=5, obj_feat_size=32)
+    tc = dataclasses.replace(tc, k_neg=7)
+    base = Trainer.build(cfg, tc, 100, seed=SEED + 4, device="cpu")
+    flat = perturbed(base.params, rs)
+    seq = [{k: torch.as_tensor(v).to("cuda")
+            for k, v in train_batch(rs, n=n, **small).items()}
+           for _ in range(GRAPH_WARMUP_STEPS + 3) for n in (6, 8)]
+    eager = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    graphed = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    want = [eager.step(b) for b in seq]
+    got = [graphed.steps([b])[0] for b in seq]
+    rel = max_rel(got, want)
+    pdiff, pbits = params_diff(graphed, eager)
+    rec = {"phase": "train_graphs_two_keys", "steps": len(seq),
+           "graphs": len(graphed._graphs),
+           "graph_pools": int(graphed._graph_pool is not None),
+           "loss_max_rel_diff": rel,
+           "losses_equal_bits": all(torch.equal(g[k], w[k])
+                                    for g, w in zip(got, want) for k in w),
+           "param_max_abs_diff": pdiff, "params_equal_bits": pbits}
+    emit(rec)
+    check(rec["graphs"] == 2 and rel <= STEPS_LOSS_RTOL
+          and pdiff <= STEPS_PARAM_ATOL,
+          f"two shape keys in one pool: {rec}")
+    return rec
+
+
 def graphed_accum(batch):
     """``accum_steps=2`` at bench.py's configuration (bf16): the warm-up
     steps and a replayed step, each profiled: K2-K4 4 times a step."""
@@ -1553,6 +1615,7 @@ def train_graphs_path(rs, batch, eager):
                 train_batch(rs, B, N, V, K_NEG, R, F).items()}
                for _ in range(4)]
     graphed_vs_eager(flat, batches[:3])
+    graphed_two_keys(rs)
     graphed_accum(batch)
     graphed_accum_vs_cpu(rs)
     opt_state_trip(batches)
@@ -1903,6 +1966,451 @@ def train_path(rs):
     return entries
 
 
+# -- phase cli: the port's train and parse CLIs end to end --------------------
+
+def synthetic_flickr(out_dir, n_train, n_test):
+    """The grounded corpus of tools/make_synthetic_flickr.py in the Flickr
+    layout.  Where ``h5py`` imports, the tool runs in a subprocess and
+    writes every file; where it does not, this function writes the text,
+    pickle and json files itself (the tool's ``make_split``, the same
+    generator, seeds and draws) and returns each mode's region arrays
+    ``(features, bboxes, pos_bboxes)`` for ``FlickrDataset`` in place of
+    its HDF5 file.  Returns ``(arrays by mode or None, route)``."""
+    if importlib.util.find_spec("h5py") is not None:
+        tool = os.path.join(ROOT, "tools", "make_synthetic_flickr.py")
+        subprocess.run([sys.executable, tool, out_dir, str(n_train),
+                        str(n_test)],
+                       check=True, capture_output=True, text=True,
+                       timeout=600)
+        return None, "hdf5"
+    return write_synthetic_flickr(out_dir, n_train, n_test), "in_memory"
+
+
+def write_synthetic_flickr(out_dir, n_train, n_test):
+    """tools/make_synthetic_flickr.py without ``h5py``: its files but the
+    HDF5 features, whose arrays are returned by mode."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_synthetic_ptb import (make_vocab, sample_tree, tree_leaves,
+                                    tree_spans, write_embeddings)
+    feat_dim, max_regions, vis_noise = 2048, 12, 0.1
+    os.makedirs(out_dir, exist_ok=True)
+    classes = make_vocab()
+    nouns = classes["n"]
+    word2idx = {"_PAD": 0, "<unk>": 1}
+    for cls in classes.values():
+        for word in cls:
+            word2idx[word] = len(word2idx)
+    with open(os.path.join(out_dir, "flickr.dic.json"), "w") as f:
+        json.dump(word2idx, f)
+    write_embeddings(os.path.join(out_dir, "glove.txt"), classes)
+    vis_rng = np.random.RandomState(99)
+    centroids = {w: vis_rng.randn(feat_dim) for w in nouns}
+    with open(os.path.join(out_dir, "objects_vocab.txt"), "w") as f:
+        f.write("\n".join(nouns) + "\n")
+
+    def box_of(slot):
+        x = 20.0 * slot
+        return [x, 0.0, x + 10.0, 10.0]
+
+    next_img_id = {"train": 10000, "test": 50000}
+    arrays = {}
+    for split, n, seed in (("train", n_train, 21), ("test", n_test, 22)):
+        mode = split
+        rng = np.random.RandomState(seed)
+        lines, id_lines, anno = [], [], {}
+        feats, bboxes, pos = [], [], []
+        imgid2idx, det = {}, {}
+        while len(lines) < n:
+            tree = sample_tree(rng, classes)
+            leaves = tree_leaves(tree)
+            if not 4 <= len(leaves) <= 16:
+                continue
+            img_id = next_img_id[mode]
+            next_img_id[mode] += 1
+            noun_pos = [i for i, w in enumerate(leaves) if w in centroids]
+            sent_nouns = []
+            for i in noun_pos:
+                if leaves[i] not in sent_nouns \
+                        and len(sent_nouns) < max_regions:
+                    sent_nouns.append(leaves[i])
+            n_distract = min(max_regions - len(sent_nouns),
+                             rng.randint(2, 6))
+            others = [w for w in nouns if w not in sent_nouns]
+            region_words = sent_nouns + list(
+                rng.choice(others, n_distract, replace=False))
+            rng.shuffle(region_words)
+            phrases = {
+                f"phr{i}": (i, i + 1, box_of(region_words.index(leaves[i])))
+                for i in noun_pos if leaves[i] in region_words}
+            start = len(feats)
+            for w in region_words:
+                feats.append(centroids[w] + vis_noise * rng.randn(feat_dim))
+            bboxes += [box_of(k) for k in range(len(region_words))]
+            pos.append([start, start + len(region_words)])
+            imgid2idx[img_id] = len(imgid2idx)
+            det[str(img_id)] = {"classes": list(region_words)}
+            lines.append([" ".join(leaves),
+                          [(a, b) for a, b in tree_spans(tree)]])
+            id_lines.append(f"{img_id}\t0")
+            if mode == "test":
+                anno[f"{img_id}_0"] = [phrases, [1, 1]]
+        with open(os.path.join(out_dir, f"flickr_{split}.json"), "w") as f:
+            for ln in lines:
+                f.write(json.dumps(ln) + "\n")
+        with open(os.path.join(out_dir, f"{split}.txt"), "w") as f:
+            f.write("\n".join(id_lines) + "\n")
+        if mode == "test":
+            with open(os.path.join(out_dir, f"gt_anno_{split}.pkl"),
+                      "wb") as f:
+                pickle.dump(anno, f)
+        arrays[mode] = (np.asarray(feats, np.float32),
+                        np.asarray(bboxes, np.float32),
+                        np.asarray(pos, np.int64))
+        with open(os.path.join(out_dir, f"{mode}_imgid2idx.pkl"), "wb") as f:
+            pickle.dump(imgid2idx, f)
+        with open(os.path.join(out_dir, f"{mode}_detection_dict.json"),
+                  "w") as f:
+            json.dump(det, f)
+    return arrays
+
+
+def cli_eval_batches(args, region_features=None):
+    """Validation batches the CLI's eval parses (length above 2), from the
+    port's own option parsing and iterator factory."""
+    options = cli_flags.parse_args(cli_flags.argument_parser(), args)
+    dataset = cli_common.get_validation_dataset(options)
+    it = cli_common.get_validation_iterator(options, dataset,
+                                            region_features=region_features)
+    return sum(1 for bm in it.get_iterator(random_seed=options.seed)
+               if bm["length"] > 2)
+
+
+def cli_log_lines(experiment_path, *marks):
+    with open(os.path.join(experiment_path, "experiment.log")) as f:
+        return [line.strip() for line in f if any(m in line for m in marks)]
+
+
+def run_cli(stage, main_fn, args, region_features):
+    """One CLI ``main(args)`` in this process, its console log kept out of
+    this script's output (the experiment log keeps it): the kernel
+    counters zeroed just before and read just after, peak memory, wall
+    seconds.  Returns ``(main's result, record)``."""
+    for k in span_region.launches:
+        span_region.launches[k] = 0
+    inside_cky.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kwargs = ({} if region_features is None
+              else {"region_features": region_features})
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = main_fn(args, **kwargs)
+    torch.cuda.synchronize()
+    rec = {"phase": "cli_stage", "stage": stage,
+           "wall_seconds": time.perf_counter() - t0,
+           "launches": kernel_counts(),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return out, rec
+
+
+def cli_train_record(rec, trainer, records, experiment_path):
+    """The train CLI's epochs (its own sents/s line, wall and eval wall
+    seconds, eval metrics) and its graphs: shape keys captured, capture
+    seconds, warm-up steps, pools."""
+    rec.update({
+        "epochs": records,
+        "epoch_log": cli_log_lines(experiment_path, "EPOCH-END",
+                                   "corpus_f1="),
+        "graphs": len(trainer._graphs),
+        "graph_pools": int(trainer._graph_pool is not None),
+        "shape_keys_captured": [list(k) for k in trainer._graphs],
+        "capture_seconds_total": sum(trainer.capture_seconds.values()),
+        "capture_seconds_max": max(trainer.capture_seconds.values(),
+                                   default=None),
+        # warm-up steps and captures together: the first epoch's wall
+        # seconds over a later one's (the same batches, all shapes warm)
+        "first_epoch_extra_seconds": (records[0]["wall_s"]
+                                      - records[1]["wall_s"]
+                                      if len(records) > 1
+                                      and records[0]["epoch"] == 0
+                                      else None),
+        "warmup_steps": sum(trainer._warmed.values()),
+        "host_step": trainer._host_step,
+    })
+    check(all(bool(torch.isfinite(p).all())
+              for p in tree_leaves(trainer.params)),
+          f"cli {rec['stage']}: non-finite parameters")
+    for r in records:
+        base = os.path.join(experiment_path, f"model.epoch_{r['epoch']}")
+        for path in (base + ".npz", base + ".pt", base + ".opt.pkl",
+                     os.path.join(experiment_path,
+                                  f"experiment.epoch_{r['epoch']}.json")):
+            check(os.path.exists(path), f"cli {rec['stage']}: no {path}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"cli {rec['stage']}: eval metrics {r['metrics']}")
+    return rec
+
+
+def cli_replay_profile(trainer, args, region_features):
+    """A profiled replay of one captured shape (a train batch of the
+    corpus): K2-K4 by name, graph launches, finite losses."""
+    options = cli_flags.parse_args(cli_flags.argument_parser(), args)
+    train = cli_common.get_train_dataset(options)
+    it = cli_common.get_train_iterator(
+        options, train, region_features=region_features.get("train")
+        if region_features else None)
+    for bm in it.get_iterator(random_seed=0):
+        key = trainer._graph_key(trainer._place_batch(bm))
+        if key in trainer._graphs:
+            break
+    else:
+        check(False, "cli: no captured shape among the train batches")
+    calls, res = {}, []
+    by_kernel = profile_kernels(lambda: res.extend(trainer.steps([bm])),
+                                calls=calls)
+    in_step = {k: own_launches(by_kernel, k) for k in SR_KERNELS}
+    check(finite_losses(res), "cli: non-finite loss in a replayed step")
+    return {"shape_key": list(key), "launches_profiled": in_step,
+            "graph_launches": calls.get("cudaGraphLaunch", 0),
+            "device_busy_ms": sum(r["ms"] for r in by_kernel.values()),
+            "losses": {k: float(v) for k, v in res[0].items()}}, bm
+
+
+UPLOAD_BATCHES = 8
+
+
+def upload_timing(obj):
+    """A CLIORA batch's regions uploaded the old way (a pageable
+    ``torch.as_tensor`` to the card) against the prefetcher's way (a
+    pinned host buffer copied ``non_blocking`` on its side stream): the
+    copy's device ms by CUDA events (median of 5 after one warm-up), and
+    the host ms a batch over UPLOAD_BATCHES batches in a row to one sync,
+    as a training loop feeds them (median of 3), the prefetcher's staging
+    into pinned memory included."""
+    dev = torch.device("cuda")
+    pinned = torch.empty(obj.shape, dtype=torch.float32, pin_memory=True)
+    pinned.numpy()[...] = obj
+    copies = {"pageable": lambda: torch.as_tensor(obj, device=dev),
+              "pinned": lambda: pinned.to(dev, non_blocking=True)}
+
+    def pageable_stream():
+        for _ in range(UPLOAD_BATCHES):
+            torch.as_tensor(obj, device=dev)
+
+    def pinned_stream():
+        batches = iter([{"obj_feats": obj}] * UPLOAD_BATCHES)
+        for _ in device_prefetch(batches, dev):
+            pass
+
+    streams = {"pageable": pageable_stream, "pinned": pinned_stream}
+    out = {"bytes": int(obj.nbytes), "batches_in_a_row": UPLOAD_BATCHES}
+    for name in copies:
+        device_ms, host_ms = [], []
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            copies[name]()
+            end.record()
+            torch.cuda.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams[name]()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3
+                           / UPLOAD_BATCHES)
+        out[name] = {"copy_device_ms": statistics.median(device_ms[1:]),
+                     "host_ms_a_batch": statistics.median(host_ms[1:])}
+    return out
+
+
+def diora_step_peak(n, vocab):
+    """Peak memory of one eager DIORA train step at the DIORA stage's
+    configuration (B=32, D=400, E=1024, k_neg=100, f32) on sentences of
+    length ``n``, above what the trainer holds."""
+    cfg = ModelConfig(size=400, input_size=1024)
+    tc = TrainConfig(lr=5e-4, k_neg=100, emb_trainable=True)
+    tr = Trainer.build(cfg, tc, vocab, seed=SEED)
+    rs = np.random.RandomState(n)
+    batch = {"sentences": rs.randint(2, vocab, (32, n)),
+             "neg_samples": rs.choice(vocab, 100, replace=False)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    check(finite_losses([tr.step(batch)]), f"diora step n={n}: non-finite")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del tr
+    torch.cuda.empty_cache()
+    return peak
+
+
+def equal_files(a, b):
+    """``.npz`` or ``.opt.pkl`` files of two runs: equal bits, and the
+    largest absolute difference."""
+    if a.endswith(".npz"):
+        with np.load(a) as za, np.load(b) as zb:
+            fa, fb = {k: za[k] for k in za.files}, {k: zb[k] for k in zb.files}
+    else:
+        oa, ob = load_opt_state(a), load_opt_state(b)
+        fa = {f"{p}/{k}": v for p in ("mu", "nu") for k, v in oa[p].items()}
+        fb = {f"{p}/{k}": v for p in ("mu", "nu") for k, v in ob[p].items()}
+        fa["count"], fb["count"] = np.asarray(oa["count"]), np.asarray(
+            ob["count"])
+    check(sorted(fa) == sorted(fb), f"{a} and {b} hold other keys")
+    return (all(np.array_equal(fa[k], fb[k]) for k in fa),
+            max(float(np.abs(fa[k].astype(np.float64) - fb[k]).max())
+                for k in fa))
+
+
+def cli_path():
+    """Phase ``cli``: the port's CLIs through their ``main(args)`` in this
+    process, as scripts/train_diora.sh -> scripts/train_cliora.sh ->
+    scripts/test_diora.sh / test_cliora.sh run them, on a synthetic
+    grounded corpus of CLI_TRAIN + CLI_TEST captions.  Returns the kernel
+    counters of each stage."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        corpus = os.path.join(work, "corpus")
+        t0 = time.perf_counter()
+        arrays, route = synthetic_flickr(corpus, CLI_TRAIN, CLI_TEST)
+        with open(os.path.join(corpus, "flickr.dic.json")) as f:
+            vocab = len(json.load(f))
+        emit({"phase": "cli_corpus", "route": route,
+              "h5py": route == "hdf5", "train": CLI_TRAIN,
+              "test": CLI_TEST, "vocab": vocab,
+              "regions": {m: int(a[0].shape[0]) for m, a in
+                          (arrays or {}).items()},
+              "seconds": time.perf_counter() - t0})
+        data = ["--data_type", "flickr",
+                "--train_path", os.path.join(corpus, "flickr_train.json"),
+                "--validation_path", os.path.join(corpus, "flickr_test.json"),
+                "--data_path", corpus + "/"]
+        exp = {name: os.path.join(work, name) for name in (
+            "diora", "cliora", "cliora_full", "parse_diora", "parse")}
+        launches = {}
+
+        # DIORA pretraining (scripts/train_diora.sh), 2 epochs
+        args = (DIORA_FLAGS + data + CLI_RUN_FLAGS
+                + ["--max_epoch", "2", "--experiment_path", exp["diora"]])
+        n_eval = cli_eval_batches(args)
+        (tr, records), rec = run_cli("diora", cli_train.main, args, None)
+        emit(cli_train_record(rec, tr, records, exp["diora"]))
+        launches["diora"] = rec["launches"]
+        check(rec["launches"]["inside_cky"] == 2 * n_eval,
+              f"cli diora: K1 launched {rec['launches']['inside_cky']} "
+              f"times, expected one per eval batch ({n_eval}) in each of "
+              f"2 epochs")
+        del tr
+        torch.cuda.empty_cache()
+
+        # CLIORA finetuning (scripts/train_cliora.sh) from the DIORA
+        # checkpoint, 1 epoch; then --resume auto to 2 epochs, against an
+        # uninterrupted 2-epoch run
+        cl = (CLIORA_FLAGS + data + CLI_RUN_FLAGS
+              + ["--attn_impl", "cuda", "--load_model_path",
+                 os.path.join(exp["diora"], "model.epoch_1.npz")])
+        stages = (("cliora", exp["cliora"], "1", []),
+                  ("cliora_resume", exp["cliora"], "2", ["--resume", "auto"]),
+                  ("cliora_uninterrupted", exp["cliora_full"], "2", []))
+        for stage, path, epochs, extra in stages:
+            args = cl + ["--max_epoch", epochs, "--experiment_path", path]
+            if stage == "cliora_resume":
+                epoch0 = os.path.getmtime(
+                    os.path.join(path, "model.epoch_0.npz"))
+            (tr, records), rec = run_cli(stage, cli_train.main,
+                                         args + extra, arrays)
+            rec = cli_train_record(rec, tr, records, path)
+            launches[stage] = rec["launches"]
+            want = 2 * (rec["warmup_steps"] + rec["graphs"])
+            check(all(rec["launches"][k] == want for k in SR_KERNELS)
+                  and rec["launches"]["inside_cky"] == 0,
+                  f"cli {stage}: kernel launches {rec['launches']}, "
+                  f"expected {want} of each of K2-K4 (2 a warm-up step "
+                  f"and 2 a capture) and no K1")
+            if stage == "cliora":
+                rec["replay"], batch = cli_replay_profile(tr, args, arrays)
+                check(all(v == 2 for v in
+                          rec["replay"]["launches_profiled"].values()),
+                      f"cli: K2-K4 in a replayed step "
+                      f"{rec['replay']['launches_profiled']}, expected 2 "
+                      f"each")
+            if stage == "cliora_resume":
+                check([r["epoch"] for r in records] == [1],
+                      f"cli resume trained epochs "
+                      f"{[r['epoch'] for r in records]}, expected [1]")
+                check(os.path.getmtime(os.path.join(
+                    path, "model.epoch_0.npz")) == epoch0,
+                    "cli resume rewrote epoch 0")
+            emit(rec)
+            del tr
+            torch.cuda.empty_cache()
+        resume = {}
+        for suffix in (".npz", ".opt.pkl"):
+            bits, diff = equal_files(
+                os.path.join(exp["cliora"], "model.epoch_1" + suffix),
+                os.path.join(exp["cliora_full"], "model.epoch_1" + suffix))
+            resume[suffix] = {"equal_bits": bits, "max_abs_diff": diff}
+        emit({"phase": "cli_resume", "train": CLI_TRAIN,
+              "resumed_vs_uninterrupted": resume})
+
+        # the parse scripts (scripts/test_diora.sh, test_cliora.sh)
+        args = (["--batch_size", "64", "--emb", "none", "--hidden_dim",
+                 "400", "--postprocess", "--load_model_path",
+                 os.path.join(exp["diora"], "model.epoch_1.npz"),
+                 "--experiment_path", exp["parse_diora"]] + data)
+        n_eval = cli_eval_batches(args)
+        metrics, rec = run_cli("parse_diora", cli_parse_diora.main, args,
+                               None)
+        rows = cli_rows(exp["parse_diora"])
+        rec.update({"metrics": metrics, "rows": len(rows),
+                    "parse_impl": sorted({r["parse_impl"] for r in rows})})
+        emit(rec)
+        launches["parse_diora"] = rec["launches"]
+        check(rec["launches"]["inside_cky"] == n_eval and len(rows) ==
+              CLI_TEST and rec["parse_impl"] == ["cuda"],
+              f"cli parse_diora: K1 {rec['launches']['inside_cky']} of "
+              f"{n_eval} batches, {len(rows)} rows, routes "
+              f"{rec['parse_impl']}")
+        args = (["--batch_size", "64", "--emb", "none", "--hidden_dim",
+                 "400", "--obj_feats", "--postprocess", "--load_model_path",
+                 os.path.join(exp["cliora"], "model.epoch_1.npz"),
+                 "--experiment_path", exp["parse"]] + data)
+        metrics, rec = run_cli("parse", cli_parse.main, args,
+                               arrays and arrays["test"])
+        rows = cli_rows(exp["parse"])
+        rec.update({"metrics": metrics, "rows": len(rows),
+                    "rows_with_boxes": sum(bool(r["pred_boxes"])
+                                           for r in rows),
+                    "parse_impl": sorted({r["parse_impl"] for r in rows})})
+        emit(rec)
+        launches["parse"] = rec["launches"]
+        check(len(rows) == CLI_TEST and all(
+            math.isfinite(v) for v in metrics.values()),
+            f"cli parse: {len(rows)} rows, metrics {metrics}")
+
+        # memory: one DIORA step at the corpus's longest length and at
+        # train_diora.sh's filter length, and the pinned upload
+        peaks = {n: diora_step_peak(n, vocab) for n in (16, 40)}
+        obj = np.asarray(batch["obj_feats"])
+        emit({"phase": "cli_memory_and_upload",
+              "diora_step_peak_bytes_by_length": peaks,
+              "upload_cliora_batch": upload_timing(obj),
+              "upload_bench_batch": upload_timing(
+                  np.concatenate([obj] * (B // obj.shape[0]), 0))})
+    emit({"phase": "cli_summary", "launches": launches,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def cli_rows(experiment_path):
+    with open(os.path.join(experiment_path, "parse.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1951,6 +2459,11 @@ def main():
     # stay as they were
     cliora_parse_path(np.random.RandomState(SEED + 1))
     entries += train_path(rs)
+    torch.cuda.empty_cache()
+    cli = cli_path()
+    for entry in entries:
+        entry["cli_launches"] = {stage: counts[entry["name"]]
+                                 for stage, counts in cli.items()}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

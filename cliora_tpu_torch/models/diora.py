@@ -30,6 +30,14 @@ class DioraOutput(NamedTuple):
     atten_score: Optional[torch.Tensor]       # (B, L, R) per-example diagonal
 
 
+def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as ``F.embedding``: the same rows, and a backward
+    that sums a repeated id's gradients in a fixed order.  (The backward
+    of ``table[ids]`` on the CPU adds them in thread order, so two runs
+    of one train step could differ in the last bit.)"""
+    return torch.nn.functional.embedding(ids, table)
+
+
 def embed_forward(ep, token_ids: torch.Tensor, trainable: bool = True):
     """Token ids -> (emb_span, emb_word), each (B, L, D).
 
@@ -37,14 +45,14 @@ def embed_forward(ep, token_ids: torch.Tensor, trainable: bool = True):
     (reference: cliora/net/trainer.py:219-224 ``Embed.forward``)
     """
     table = ep["embeddings"] if trainable else ep["embeddings"].detach()
-    emb = table[token_ids]                              # (B, L, E)
+    emb = table_rows(table, token_ids)                  # (B, L, E)
     return emb @ ep["mat"].T, emb @ ep["mat1"].T
 
 
 def embed_span(ep, token_ids: torch.Tensor) -> torch.Tensor:
     """``emb_span`` of ``embed_forward`` alone, (B, L, D): the text parse
     reads no word embeddings."""
-    return ep["embeddings"][token_ids] @ ep["mat"].T
+    return table_rows(ep["embeddings"], token_ids) @ ep["mat"].T
 
 
 def image_encoder_forward(ip, obj_feats: torch.Tensor):

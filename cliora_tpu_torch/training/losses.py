@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from cliora_tpu_torch.chart.indices import INDEX
+from cliora_tpu_torch.models.diora import table_rows
 
 MIN_VAL = 1e-8
 
@@ -75,8 +76,8 @@ def reconstruction_loss(recon_params, embed_table: torch.Tensor,
     mat = recon_params["mat"]
     # a bf16 chart against f32 projections: f32, as JAX promotes
     cell = outside_h[:, :L].float()                       # (B, L, D)
-    proj_pos = embed_table[tokens] @ mat.T                # (B, L, D)
-    proj_neg = embed_table[neg_samples] @ mat.T           # (k, D)
+    proj_pos = table_rows(embed_table, tokens) @ mat.T    # (B, L, D)
+    proj_neg = table_rows(embed_table, neg_samples) @ mat.T   # (k, D)
 
     xp = torch.einsum("bld,bld->bl", proj_pos, cell)[..., None]  # (B, L, 1)
     xn = torch.einsum("kd,bld->blk", proj_neg, cell)             # (B, L, k)

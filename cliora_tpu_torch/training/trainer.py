@@ -21,6 +21,7 @@ over the trainable ones (reference: cliora/net/trainer.py:450-455).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -284,14 +285,22 @@ class _StepGraph:
     generator of step k draws.  Everything else the step writes (the
     parameters, Adam's state, its device step count) lives outside the
     graph's memory pool and is updated in place, so it stays valid for
-    every replay."""
+    every replay.
 
-    def __init__(self, trainer: "Trainer", batch):
+    All graphs of a trainer share one memory pool (``pool``), so memory
+    grows with the largest shape rather than with the number of shapes.
+    That is sound because replays run one at a time on one stream, each
+    replay's outputs are copied out before the next (:meth:`replay`), and
+    what must outlive a replay -- static inputs, parameters, optimizer
+    state, the chart index cache (filled by the eager warm-up steps) --
+    is allocated outside the pool."""
+
+    def __init__(self, trainer: "Trainer", batch, pool):
         self.inputs = [None if x is None else x.clone() for x in batch]
         self.generator = torch.Generator(device=trainer.device)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(self.generator)
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, pool=pool):
             metrics = trainer._train_step(*self.inputs, self.generator)
             self.names = list(metrics)
             self.out = torch.stack([metrics[k].float() for k in self.names])
@@ -330,11 +339,14 @@ class Trainer:
         # host-side step counter for the dropout stream: reading a device
         # counter would sync every step
         self._host_step = 0
-        # Trainer.steps on the card: one graph per batch shape key, and the
-        # warm-up steps taken so far for a key without one
+        # Trainer.steps on the card: one graph per batch shape key, the
+        # memory pool they share, the warm-up steps taken so far for a key
+        # without one, and each capture's wall seconds
         self._graphs: Dict[tuple, _StepGraph] = {}
+        self._graph_pool = None
         self._warmed: Dict[tuple, int] = {}
         self._side_stream = None
+        self.capture_seconds: Dict[tuple, float] = {}
 
     @classmethod
     def build(cls, cfg: ModelConfig, tc: TrainConfig, embeddings,
@@ -383,7 +395,10 @@ class Trainer:
                     'obj_feats': (B, R, F) float (CLIORA),
                     'lengths': optional (B,) true lengths}, numpy
         arrays or tensors
-        ``generator`` overrides the step's dropout stream.  The eval step
+        ``generator`` overrides the step's dropout stream and leaves the
+        host step counter where it was; without it the step draws from
+        ``dropout_generator(host step)`` and advances the counter
+        (cliora_tpu/training/trainer.py:657-659).  The eval step
         materializes the attention scores and mixes ``vg_atten`` as at
         eval (cliora.py:462-464).  Returns a dict of device-resident
         scalar tensors: nothing here waits for the device (float() them
@@ -397,9 +412,10 @@ class Trainer:
                     self.cfg, self.tc, self.params, tokens, neg,
                     obj_feats=obj, train=False, lengths=lengths)
             return metrics
-        if generator is None:
-            generator = self.dropout_generator(self._host_step)
-        metrics = self._train_step(tokens, neg, obj, lengths, generator)
+        if generator is not None:
+            return self._train_step(tokens, neg, obj, lengths, generator)
+        metrics = self._train_step(tokens, neg, obj, lengths,
+                                   self.dropout_generator(self._host_step))
         self._host_step += 1
         return metrics
 
@@ -488,12 +504,19 @@ class Trainer:
             if warmed < GRAPH_WARMUP_STEPS:
                 self._warmed[key] = warmed + 1
                 return self._side_stream_step(batch)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            t0 = time.perf_counter()
             try:
-                graph = _StepGraph(self, batch)
+                graph = _StepGraph(self, batch, self._graph_pool)
             except RuntimeError as err:
+                # the failed capture leaves its pool marked as capturing:
+                # later captures start a pool of their own
+                self._graph_pool = None
                 raise RuntimeError(
                     f"CUDA graph capture of the train step failed for shape "
                     f"key {key}; no step ran") from err
+            self.capture_seconds[key] = time.perf_counter() - t0
             self._graphs[key] = graph
         return graph.replay(batch, DROPOUT_SEED + self._host_step)
 
@@ -519,13 +542,12 @@ class Trainer:
                                           tree_leaves(self.mask)) if m]
 
     def set_step(self, n: int):
-        """Restore the step counter for exact resume: the host counter of
-        the dropout stream and Adam's step count on every trainable
-        parameter, written in place (cliora_tpu/training/trainer.py:561-571
-        ``set_step``)."""
+        """Restore the host step counter, which keys the dropout stream
+        (:meth:`dropout_generator`), for exact resume
+        (cliora_tpu/training/trainer.py:561-571 ``set_step``).  Adam's
+        step count is left alone: only ``install_state(opt_state=...)``
+        writes it."""
         self._host_step = int(n)
-        for _, p in self._trainable():
-            self.optimizer.state[p]["step"].fill_(float(n))
 
     def opt_state(self) -> Dict[str, Any]:
         """Adam's state on the host: ``{"count": int, "mu": {path: array},

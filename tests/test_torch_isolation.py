@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,8 +36,41 @@ def test_import_every_module_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, out.stdout
+    # models/ ops/ training/ analysis/ chart/ native/, and since the CLI
+    # slice data/ utils/ scripts/
+    assert int(count) >= 40, out.stdout
     assert bad == "[]", bad
+
+
+_TRAIN_CLI = r"""
+import sys
+from cliora_tpu_torch.scripts import train
+train.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "cliora_tpu"))
+print(bad)
+"""
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """The port's train CLI, run on the CPU over a small text corpus for
+    one epoch (train, checkpoint, eval), imports none of JAX, optax or
+    the JAX package."""
+    words = [f"w{i}" for i in range(20)]
+    rs = np.random.RandomState(0)
+    corpus = tmp_path / "train.txt"
+    corpus.write_text("".join(
+        " ".join(words[i] for i in rs.randint(0, 20, 5)) + "\n"
+        for _ in range(12)))
+    args = ["--device", "cpu", "--data_type", "txt", "--emb", "none",
+            "--train_path", str(corpus), "--validation_path", str(corpus),
+            "--experiment_path", str(tmp_path / "exp"), "--hidden_dim", "8",
+            "--k_neg", "3", "--batch_size", "4", "--max_epoch", "1"]
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CLI, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert (tmp_path / "exp" / "model.epoch_0.npz").exists()
 
 
 _FORBIDDEN = re.compile(
