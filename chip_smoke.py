@@ -35,6 +35,20 @@ width with random weights from a seed:
     step against the CPU; an optimizer-state checkpoint trip whose
     resumed step has the uninterrupted one's bits; and a capture that
     fails raises rather than stepping eagerly;
+  * the port's CLIs on a synthetic grounded corpus (phase ``cli``);
+  * serving (phase ``serve``): the README quick-start model exported by
+    ``scripts/export_model.py`` (buckets 10/20/40, symbolic batch, weights
+    as inputs and baked; four export processes at once with the CLIORA
+    bundle below), loaded by ``ExportedParser`` and warmed to 64 rows (21
+    CUDA graphs in one pool), 512 sentences of 2-40 tokens through
+    ``parse`` in calls of 64 rows, the HTTP server of ``scripts/serve.py``
+    (16 clients x 16 one-sentence requests micro-batched, then serialized
+    behind a lock), a restarted server process, and the CLIORA train
+    step's model as a bundle (128 sentences with 36 x 2048-d regions,
+    and a parse racing ``warmup_async``); every served output equals
+    ``Trainer.parse(impl="plain")`` on the same padded rows and every
+    replay its eager program, bit for bit; no call after warmup runs
+    eagerly; none of K1-K4 is launched;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -82,7 +96,7 @@ import time
 import numpy as np
 import torch
 
-from cliora_tpu_torch import kernels, native
+from cliora_tpu_torch import kernels, native, serving
 from cliora_tpu_torch.analysis import trees
 from cliora_tpu_torch.analysis.eval import run_eval
 from cliora_tpu_torch.analysis.grounding import ground_phrases, span_pred_boxes
@@ -94,8 +108,10 @@ from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
 from cliora_tpu_torch.scripts import common as cli_common
+from cliora_tpu_torch.scripts import export_model as cli_export
 from cliora_tpu_torch.scripts import parse as cli_parse
 from cliora_tpu_torch.scripts import parse_diora as cli_parse_diora
+from cliora_tpu_torch.scripts import serve as cli_serve
 from cliora_tpu_torch.scripts import train as cli_train
 from cliora_tpu_torch.training import trainer as trainer_mod
 from cliora_tpu_torch.training.checkpoint import (
@@ -2411,6 +2427,616 @@ def cli_rows(experiment_path):
         return [json.loads(line) for line in f]
 
 
+# -- phase serve: bundles, CUDA graphs per shape, the micro-batched server ----
+
+# the README quick-start DIORA model's bundle (export_model's default
+# buckets), warmed to SERVE_MAX_BATCH rows: 3 buckets x 7 row counts
+SERVE_BUCKETS = (10, 20, 40)
+SERVE_MAX_BATCH = 64
+SERVE_SHAPES = len(SERVE_BUCKETS) * 7
+# traffic: sentences of lengths uniform in 2..40 with ids uniform over the
+# vocab; the HTTP clients, each sending one-sentence requests in turn
+SERVE_SENTENCES = 512
+SERVE_CLIENTS, SERVE_CLIENT_REQUESTS = 16, 16
+SERVE_TIMED_CALLS = 5
+# the CLIORA bundle: the train step's model at its sentence length
+SERVE_OBJ_BUCKETS = (20,)
+SERVE_OBJ_SENTENCES = 128
+
+
+def write_vocab_corpus(path, vocab):
+    """A text corpus whose first-seen vocab is ``w0`` .. ``w{vocab-1}``,
+    40 words a line."""
+    with open(path, "w") as f:
+        for i in range(0, vocab, 40):
+            f.write(" ".join(f"w{j}" for j in range(i, min(i + 40, vocab)))
+                    + "\n")
+
+
+def export_cliora_main(flat_npz, bundle, in_args):
+    """Child process of :func:`start_exports`: the CLIORA bundle of the
+    weights in ``flat_npz``, one bucket at a time; prints each bucket's
+    export seconds and MB as one JSON line."""
+    cfg, _ = train_configs("float32")
+    with np.load(flat_npz) as z:
+        params = params_from_numpy({k: z[k] for k in z.files}, "cuda")
+    in_args = in_args == "args"
+    arts, timings = {}, {}
+    for L in SERVE_OBJ_BUCKETS:
+        t0 = time.perf_counter()
+        arts.update(serving.export_parser(cfg, params, [L],
+                                          params_in_args=in_args))
+        timings[L] = {"seconds": time.perf_counter() - t0,
+                      "mb": len(arts[L]) / 1e6}
+    serving.save_bundle(bundle, cfg, arts, params=params if in_args else None)
+    print(json.dumps(timings), flush=True)
+
+
+def text_export_flags(corpus, exp):
+    """export_model's flags for the README quick-start model over the
+    vocab corpus, random weights from SEED."""
+    return ["--data_type", "txt", "--emb", "none",
+            "--validation_path", corpus, "--experiment_path", exp,
+            "--hidden_dim", str(D), "--seed", str(SEED),
+            "--export_lengths", ",".join(map(str, SERVE_BUCKETS))]
+
+
+def start_exports(work, corpus, flat_npz):
+    """The phase's four bundles, each exported by a process of its own,
+    all started together (an export traces the parse on one CPU core):
+    the text bundle through ``python -m cliora_tpu_torch.scripts.
+    export_model`` with and without ``--export_baked_params``, the CLIORA
+    bundle through :func:`export_cliora_main` in both weight modes.
+    Returns ``{(kind, mode): (process, bundle path, log path)}``."""
+    jobs = {}
+    for mode in ("args", "baked"):
+        exp = os.path.join(work, f"text_{mode}")
+        cmd = [sys.executable, "-m", "cliora_tpu_torch.scripts.export_model",
+               *text_export_flags(corpus, exp)]
+        if mode == "baked":
+            cmd.append("--export_baked_params")
+        jobs["text", mode] = (cmd, os.path.join(exp, "bundle"),
+                              os.path.join(work, f"text_{mode}.log"))
+        bundle = os.path.join(work, f"cliora_{mode}")
+        jobs["cliora", mode] = (
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.export_cliora_main(*sys.argv[1:])", flat_npz,
+             bundle, mode],
+            bundle, os.path.join(work, f"cliora_{mode}.log"))
+    out = {}
+    for key, (cmd, bundle, log) in jobs.items():
+        with open(log, "w") as f:
+            out[key] = (subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                         stderr=subprocess.STDOUT),
+                        bundle, log)
+    return out
+
+
+def finish_exports(jobs, timeout):
+    """Wait for the export processes (killing any left at the end);
+    returns each one's per-bucket seconds and MB."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for proc, _, _ in jobs.values():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    timings = {}
+    for (kind, mode), (proc, _, log) in jobs.items():
+        with open(log) as f:
+            text = f.read()
+        check(proc.returncode == 0,
+              f"serve: the {kind} {mode} export exited {proc.returncode}: "
+              f"{text[-2000:]}")
+        if kind == "text":
+            timings[kind, mode] = {
+                int(L): {"mb": float(mb), "seconds": float(s)}
+                for L, mb, s in re.findall(
+                    r"exported bucket L=(\d+): ([\d.]+) MB in ([\d.]+) s",
+                    text)}
+        else:
+            timings[kind, mode] = json.loads(text.strip().splitlines()[-1])
+    return timings
+
+
+def record_calls(parser):
+    """Wrap ``parser._call``: each program call's host inputs and outputs
+    and its ms, in call order."""
+    calls = []
+    real = parser._call
+
+    def call(L, host):
+        t0 = time.perf_counter()
+        out = real(L, host)
+        calls.append({"L": L, "host": [a.copy() for a in host], "out": out,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+    parser._call = call
+    return calls
+
+
+def served_vs_plain(trainer, calls, what):
+    """Each recorded program call against ``Trainer.parse(impl="plain")``
+    on the same padded rows with ``lengths``: equal bits."""
+    differ = 0
+    for c in calls:
+        bm = {"sentences": c["host"][0], "lengths": c["host"][1]}
+        if len(c["host"]) == 3:
+            bm["obj_feats"] = c["host"][2]
+        want, _ = trainer.parse(bm, impl="plain")
+        check(want["parse_impl"] == "plain", f"{what}: plain route not taken")
+        differ += sum(not np.array_equal(want[k], c["out"][k])
+                      for k in c["out"])
+    return differ
+
+
+def replay_vs_eager(parser, rs, vocab):
+    """Every captured shape: a replay against the exported program called
+    eagerly on the same inputs (equal bits), and the ms of each with its
+    outputs on the host."""
+    out = {}
+    for (L, b) in sorted(parser._graphs):
+        host = parser._host_inputs(L, b)
+        host[1] = rs.randint(1, L + 1, b).astype(np.int64)
+        host[0] = rs.randint(0, vocab, (b, L)).astype(np.int64)
+        if len(host) == 3:
+            host[2] = rs.randn(*host[2].shape).astype(np.float32)
+        got = parser._call(L, host)
+
+        def eager():
+            with torch.no_grad():
+                res = parser._fns[L](*parser._params, *(
+                    torch.from_numpy(a).to(parser.device) for a in host))
+            return {k: v.cpu().numpy() for k, v in res.items()}
+
+        want = eager()
+        rec = {"equal_bits": all(np.array_equal(got[k], want[k])
+                                 for k in want)}
+        for name, fn in (("graph_ms", lambda: parser._call(L, host)),
+                         ("eager_ms", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_TIMED_CALLS):
+                fn()
+            rec[name] = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED_CALLS
+        out[f"{L}x{b}"] = rec
+    return out
+
+
+def profiled_replay(parser, L, b, graph_ms):
+    """One profiled replay of shape (L, b): device-busy ms, and the idle
+    share against the host time of that same call (the profiler stretches
+    each of a replay's kernels a little, so the unprofiled ``graph_ms``
+    is no denominator for its busy time); host launch calls and device
+    kernels."""
+    host = parser._host_inputs(L, b)
+    calls, wall = {}, []
+
+    def replay():
+        t0 = time.perf_counter()
+        parser._call(L, host)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    by_kernel = profile_kernels(replay, calls=calls)
+    busy = sum(r["ms"] for r in by_kernel.values())
+    return {"shape": [L, b], "graph_ms": graph_ms,
+            "profiled_call_ms": wall[0],
+            "device_busy_ms": busy if by_kernel else "not measured",
+            "idle_share": 1 - busy / wall[0] if by_kernel
+            else "not measured",
+            "host_launch_calls": calls,
+            "device_kernels": (sum(r["count"] for r in by_kernel.values())
+                               if by_kernel else "not measured")}
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def http_traffic(port, sents, serialize):
+    """SERVE_CLIENTS threads, each sending SERVE_CLIENT_REQUESTS
+    one-sentence requests in turn; ``serialize`` holds one lock over each
+    request, so one is in flight at a time.  Returns the trees by sentence
+    index, the latencies (ms) and the wall seconds."""
+    import http.client
+    import threading
+
+    lock = threading.Lock() if serialize else contextlib.nullcontext()
+    barrier = threading.Barrier(SERVE_CLIENTS)
+    got, lat, errors = {}, [], []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        barrier.wait()
+        try:
+            for r in range(SERVE_CLIENT_REQUESTS):
+                i = c * SERVE_CLIENT_REQUESTS + r
+                body = json.dumps({"sentences": [sents[i]]})
+                # a request's latency includes its wait for the lock
+                t0 = time.perf_counter()
+                with lock:
+                    conn.request("POST", "/parse", body,
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    reply = json.loads(resp.read())
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if resp.status != 200:
+                    errors.append(reply)
+                    return
+                got[i] = reply["trees"][0]
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not errors, f"serve http: error replies {errors[:2]}")
+    return got, lat, wall
+
+
+def post(port, body):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/parse", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def as_lists(tree):
+    return [as_lists(t) for t in tree] if isinstance(tree, tuple) else tree
+
+
+def serve_http(bundle, sents, direct):
+    """The server of ``make_server`` on 127.0.0.1: micro-batched and
+    serialized traffic, texts requests and an over-length request."""
+    import threading
+
+    log = io.StringIO()     # the server's console line, kept as a record
+    with contextlib.redirect_stdout(log):
+        srv = cli_serve.make_server(bundle, "127.0.0.1", 0,
+                                    max_batch=SERVE_MAX_BATCH,
+                                    max_wait_ms=5.0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = srv.server_address[1]
+        rec = {"phase": "serve_http", "clients": SERVE_CLIENTS,
+               "requests": SERVE_CLIENTS * SERVE_CLIENT_REQUESTS,
+               "server_log": log.getvalue().splitlines()}
+        for mode, serialize in (("micro_batched", False),
+                                ("serialized", True)):
+            got, lat, wall = http_traffic(port, sents, serialize)
+            rec[mode] = {"request_ms_p50": percentile(lat, 50),
+                         "request_ms_p99": percentile(lat, 99),
+                         "requests_per_s": len(lat) / wall,
+                         "trees_equal_direct": all(
+                             got[i] == as_lists(direct[i]) for i in got)}
+            check(len(got) == rec["requests"]
+                  and rec[mode]["trees_equal_direct"],
+                  f"serve http {mode}: trees differ from the direct parse")
+        texts = [" ".join(f"w{t}" for t in sents[i]) for i in range(4)]
+        status, reply = post(port, {"texts": texts})
+        rec["texts_ok"] = status == 200 and reply["trees"] == [
+            as_lists(trees.replace_leaves(direct[i], texts[i].split()))
+            for i in range(4)]
+        status, reply = post(port, {"sentences": [[1] * 41]})
+        rec["over_length_status"] = status
+        rec["over_length_error"] = reply.get("error")
+        rec["graph_replays"] = srv.parser.graph_replays
+        rec["eager_calls"] = srv.parser.eager_calls
+        emit(rec)
+        check(rec["texts_ok"], "serve http: texts request")
+        check(status == 400 and "exceeds" in rec["over_length_error"],
+              f"serve http: over-length request got {status}")
+        check(rec["eager_calls"] == 0,
+              f"serve http: {rec['eager_calls']} eager program calls after "
+              f"warmup")
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
+        del srv
+        torch.cuda.empty_cache()
+    return rec
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def restart_to_warm(bundle, sentence):
+    """``python -m cliora_tpu_torch.scripts.serve`` in a new process: the
+    seconds to an answered /healthz (load + captures) and to the first
+    answer of a parse."""
+    import http.client
+
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cliora_tpu_torch.scripts.serve",
+         "--bundle", bundle, "--port", str(port),
+         "--max_batch", str(SERVE_MAX_BATCH)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        healthz = None
+        while time.perf_counter() - t0 < 600 and proc.poll() is None:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                ok = conn.getresponse().status == 200
+                conn.close()
+                if ok:
+                    healthz = time.perf_counter() - t0
+                    break
+            except OSError:
+                time.sleep(0.05)
+        check(healthz is not None, "serve restart: /healthz never answered")
+        status, reply = post(port, {"sentences": [sentence]})
+        first = time.perf_counter() - t0
+        check(status == 200, f"serve restart: first parse got {status}")
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    return {"phase": "serve_restart", "seconds_to_healthz": healthz,
+            "seconds_to_first_answer": first,
+            "server_log": [line for line in out.splitlines()
+                           if line.startswith(("warmup", "serving"))]}
+
+
+def load_and_warm(bundle):
+    """``ExportedParser`` on the card: load seconds, warmup (captures)
+    seconds and shapes, and the peak and held device memory of the
+    shared graph pool."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    parser = serving.ExportedParser(bundle)
+    load_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    shapes = parser.warmup(SERVE_MAX_BATCH)
+    torch.cuda.synchronize()
+    return parser, {
+        "load_seconds": load_s, "warmup_seconds": time.perf_counter() - t0,
+        "warmed_shapes": shapes, "graphs": len(parser._graphs),
+        "capture_seconds": {f"{L}x{b}": s for (L, b), s in
+                            parser.capture_seconds.items()},
+        "peak_bytes_load_and_warmup": torch.cuda.max_memory_allocated(),
+        "graph_pool_bytes_held": torch.cuda.memory_allocated() - base}
+
+
+def program_calls(calls):
+    return [{"shape": f"{c['L']}x{c['host'][0].shape[0]}", "ms": c["ms"]}
+            for c in calls]
+
+
+def serve_text(bundles, timings, sents, trainer, rs):
+    """Each weight mode's text bundle loaded and warmed, the traffic
+    through ``parse`` in calls of SERVE_MAX_BATCH rows, every program
+    call against the plain route and every shape's replay against its
+    eager program.  Returns the trees of the traffic."""
+    out = {}
+    for mode in ("args", "baked"):
+        parser, rec = load_and_warm(bundles[mode])
+        calls = record_calls(parser)
+        per_call, direct = [], []
+        t0 = time.perf_counter()
+        for c0 in range(0, SERVE_SENTENCES, SERVE_MAX_BATCH):
+            t1 = time.perf_counter()
+            direct += parser.parse(sents[c0:c0 + SERVE_MAX_BATCH],
+                                   max_rows=SERVE_MAX_BATCH)
+            per_call.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - t0
+        traffic = {"replays": parser.graph_replays,
+                   "eager_calls": parser.eager_calls}
+        del parser._call
+        differ = served_vs_plain(trainer, calls, f"serve {mode}")
+        by_shape = replay_vs_eager(parser, rs, V)
+        big = f"{SERVE_BUCKETS[-1]}x{SERVE_MAX_BATCH}"
+        rec = {"phase": "serve_bundle", "weights": mode, "vocab": V,
+               "hidden": D, "buckets": list(SERVE_BUCKETS),
+               "export": timings[mode], **rec,
+               "sentences": SERVE_SENTENCES,
+               "sentences_per_s": SERVE_SENTENCES / wall,
+               "parse_call_ms": per_call, "program_calls":
+                   program_calls(calls),
+               **traffic, "plain_arrays_differ": differ,
+               "replay_vs_eager": by_shape,
+               "profiled_replay": profiled_replay(
+                   parser, SERVE_BUCKETS[-1], SERVE_MAX_BATCH,
+                   by_shape[big]["graph_ms"]),
+               "card": nvidia_smi_line()}
+        emit(rec)
+        check(rec["warmed_shapes"] == SERVE_SHAPES
+              and rec["graphs"] == SERVE_SHAPES,
+              f"serve {mode}: {rec['warmed_shapes']} shapes warmed, "
+              f"{rec['graphs']} graphs")
+        check(traffic["eager_calls"] == 0 and traffic["replays"] == len(calls),
+              f"serve {mode}: {traffic} after warmup")
+        check(differ == 0, f"serve {mode}: {differ} program outputs differ "
+              f"from the plain route")
+        check(all(r["equal_bits"] for r in by_shape.values()),
+              f"serve {mode}: a replay differs from its eager program")
+        out[mode] = direct
+        del parser
+        torch.cuda.empty_cache()
+    check(out["args"] == out["baked"],
+          "serve: the two weight modes' trees differ")
+    return out["args"]
+
+
+def warmup_race(parser, trainer, sents, feats, want_trees):
+    """``warmup_async`` on the card: the parser's graphs dropped, captured
+    again on a daemon thread while this thread parses 16 sentences; the
+    parser's lock keeps captures and calls apart.  The raced calls (a
+    replay or an eager call, whichever reached the lock first) must equal
+    the plain route, and every shape must be captured after the join."""
+    parser._graphs.clear()
+    parser._pool = None
+    replays, eager = parser.graph_replays, parser.eager_calls
+    calls = record_calls(parser)
+    thread = parser.warmup_async(SERVE_MAX_BATCH)
+    raced, _ = parser.parse(sents[:16], obj_feats=feats[:16])
+    thread.join(timeout=300)
+    del parser._call
+    rec = {"phase": "serve_warmup_async", "thread_done": not thread.is_alive(),
+           "graphs_after_join": len(parser._graphs),
+           "raced_replays": parser.graph_replays - replays,
+           "raced_eager_calls": parser.eager_calls - eager,
+           "plain_arrays_differ": served_vs_plain(trainer, calls,
+                                                  "serve warmup_async"),
+           "trees_equal": raced == want_trees[:16]}
+    check(rec["thread_done"]
+          and rec["graphs_after_join"] == len(SERVE_OBJ_BUCKETS) * 7
+          and rec["plain_arrays_differ"] == 0 and rec["trees_equal"],
+          f"serve warmup_async: {rec}")
+    return rec
+
+
+def serve_cliora(bundles, timings, trainer, rs):
+    """The CLIORA bundle in both weight modes: SERVE_OBJ_SENTENCES
+    sentences with their regions through ``ExportedParser`` directly,
+    every program call against the plain route."""
+    top = max(SERVE_OBJ_BUCKETS)
+    sents = [list(map(int, rs.randint(0, V, rs.randint(2, top + 1))))
+             for _ in range(SERVE_OBJ_SENTENCES)]
+    feats = rs.randn(SERVE_OBJ_SENTENCES, R, F).astype(np.float32)
+    got = {}
+    for mode in ("args", "baked"):
+        parser, rec = load_and_warm(bundles[mode])
+        calls = record_calls(parser)
+        t0 = time.perf_counter()
+        got_trees, got_attn = parser.parse(sents, obj_feats=feats,
+                                           max_rows=SERVE_MAX_BATCH)
+        wall = time.perf_counter() - t0
+        del parser._call
+        differ = served_vs_plain(trainer, calls, f"serve cliora {mode}")
+        rec = {"phase": "serve_cliora", "weights": mode,
+               "buckets": list(SERVE_OBJ_BUCKETS), "regions": [R, F],
+               "export": timings[mode], **rec,
+               "sentences": len(sents), "sentences_per_s": len(sents) / wall,
+               "program_calls": program_calls(calls),
+               "graph_replays": parser.graph_replays,
+               "eager_calls": parser.eager_calls,
+               "plain_arrays_differ": differ}
+        emit(rec)
+        check(parser.eager_calls == 0 and differ == 0,
+              f"serve cliora {mode}: eager calls {parser.eager_calls}, "
+              f"{differ} outputs differ from the plain route")
+        got[mode] = (got_trees, [a.tolist() for a in got_attn])
+        if mode == "args":
+            emit(warmup_race(parser, trainer, sents, feats, got_trees))
+        del parser
+        torch.cuda.empty_cache()
+    check(got["args"] == got["baked"],
+          "serve cliora: the two weight modes differ")
+
+
+def k1_agreement(trainer, sents, direct):
+    """Not a check: the served trees (plain route, ``lengths``) against K1
+    parses of the exact-length rows, which group fc0's sums another way
+    (ROADMAP, known deltas)."""
+    by_len = {}
+    for i, s in enumerate(sents):
+        by_len.setdefault(len(s), []).append(i)
+    agree = 0
+    routes = set()
+    for n, rows in by_len.items():
+        if n < 2:
+            continue
+        res, _ = trainer.parse({"sentences": np.asarray([sents[i]
+                                                         for i in rows])})
+        routes.add(res["parse_impl"])
+        for r, (tree, _) in enumerate(trees.decode_batch(res["cky_bp"], n)):
+            agree += tree == direct[rows[r]]
+    return {"phase": "serve_vs_k1", "sentences": len(sents),
+            "trees_equal": agree, "share": agree / len(sents),
+            "routes": sorted(routes)}
+
+
+def serve_path():
+    """Phase ``serve``: export (four processes at once) -> load -> CUDA
+    graphs -> parse traffic -> the HTTP server -> a restarted server ->
+    the CLIORA bundle.  Launches none of K1-K4 (the serving route is the
+    plain chart pass with ``lengths``, as under the JAX gating); returns
+    the counters' moves."""
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(SEED + 2)
+    before = kernel_counts()
+    with tempfile.TemporaryDirectory() as work:
+        corpus = os.path.join(work, "vocab.txt")
+        write_vocab_corpus(corpus, V)
+        # the CLIORA bundle's weights: the train step's model with its
+        # image encoder moved off its zero init
+        cfg, tc = train_configs("float32")
+        flat = perturbed(Trainer.build(cfg, tc, V, seed=SEED).params, rs)
+        flat_npz = os.path.join(work, "cliora_init.npz")
+        np.savez(flat_npz, **flat)
+        t0 = time.perf_counter()
+        jobs = start_exports(work, corpus, flat_npz)
+        timings = finish_exports(jobs, timeout=900)
+        export_wall = time.perf_counter() - t0
+        bundles = {key: bundle for key, (_, bundle, _) in jobs.items()}
+
+        # the text model again: export_model's seed gives the same weights
+        options = cli_flags.parse_args(
+            cli_export.add_export_flags(cli_flags.argument_parser()),
+            text_export_flags(corpus, os.path.join(work, "text_args")))
+        text_trainer = cli_common.build_trainer(
+            options, cli_common.get_validation_dataset(options)["embeddings"])
+        sents = [list(map(int, rs.randint(0, V, rs.randint(2, 41))))
+                 for _ in range(SERVE_SENTENCES)]
+        direct = serve_text({m: bundles["text", m] for m in ("args", "baked")},
+                            {m: timings["text", m] for m in ("args", "baked")},
+                            sents, text_trainer, rs)
+        http_rec = serve_http(bundles["text", "args"], sents, direct)
+        restart = restart_to_warm(bundles["text", "args"], sents[0])
+        emit(restart)
+        obj_trainer = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+        serve_cliora({m: bundles["cliora", m] for m in ("args", "baked")},
+                     {m: timings["cliora", m] for m in ("args", "baked")},
+                     obj_trainer, rs)
+        del obj_trainer
+        after = kernel_counts()
+        moved = {k: after[k] - before[k] for k in after}
+        emit({"phase": "serve_summary", "launches": moved,
+              "export_wall_seconds_four_processes": export_wall,
+              "wall_seconds": time.perf_counter() - t_phase,
+              "micro_batched": http_rec["micro_batched"],
+              "serialized": http_rec["serialized"],
+              "restart_seconds_to_first_answer":
+                  restart["seconds_to_first_answer"],
+              "card": nvidia_smi_line()})
+        check(all(v == 0 for v in moved.values()),
+              f"the serve phase launched a hand kernel: {moved}")
+        emit(k1_agreement(text_trainer, sents, direct))
+    return moved
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2461,6 +3087,8 @@ def main():
     entries += train_path(rs)
     torch.cuda.empty_cache()
     cli = cli_path()
+    torch.cuda.empty_cache()
+    cli["serve"] = serve_path()
     for entry in entries:
         entry["cli_launches"] = {stage: counts[entry["name"]]
                                  for stage, counts in cli.items()}

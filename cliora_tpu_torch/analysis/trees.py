@@ -16,7 +16,6 @@ import re
 import numpy as np
 
 from cliora_tpu_torch import native
-from cliora_tpu_torch.chart.offsets import level_offsets
 
 # Which decoder ran the last ``decode_batch`` call in this process:
 # "native" (the C decoder) or "python" (no C toolchain to build it).
@@ -31,7 +30,11 @@ def bp_to_tree(n: int, bp_row, length=None):
     true length ``m <= n`` from a padded length-``n`` chart (root at cell
     ``(m-1, 0)``; every cell under it is valid).
     """
-    offs = level_offsets(n)
+    # the first cell of each level in the flat level-major layout
+    # (chart/offsets.py:level_offsets; not imported, so that a serving
+    # host that only decodes loads none of the model's modules)
+    rem = n - np.arange(n)
+    offs = n * (n + 1) // 2 - rem * (rem + 1) // 2
     bp_row = np.asarray(bp_row)
     m = n if length is None else int(length)
 

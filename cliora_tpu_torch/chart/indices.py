@@ -92,7 +92,11 @@ class ChartIndex:
     """Memoized per-``(n, level, device)`` index tensors (int64, the index
     dtype of advanced indexing).
 
-    The key set is bounded by the sentence lengths a process sees.
+    The key set is bounded by the sentence lengths a process sees.  A
+    trace (``torch.export``, ``torch.compile``) reads the cache but never
+    fills it: a tensor made while tracing is a fake one, and a later
+    eager pass would read it.  :meth:`fill` makes a length's entries
+    before a trace, which then holds them as constants.
     """
 
     def __init__(self):
@@ -102,11 +106,23 @@ class ChartIndex:
     def _get(self, kind, build, n, level, device):
         device = torch.device(device)
         key = (kind, n, level, device)
-        if key not in self._cache:
-            self._cache[key] = tuple(
-                torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
-                for a in build(n, level))
-        return self._cache[key]
+        if key in self._cache:
+            return self._cache[key]
+        out = tuple(torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+                    for a in build(n, level))
+        if not torch.compiler.is_compiling():
+            self._cache[key] = out
+        return out
+
+    def fill(self, n: int, device):
+        """Make every entry the chart passes of a length-``n`` chart read
+        on ``device``."""
+        for level in range(1, n):
+            self.inside(n, level, device)
+        for level in range(n - 1):
+            self.outside(n, level, device)
+        self.coords(n, device)
+        self.offsets(n, device)
 
     def inside(self, n: int, level: int, device) -> Tuple[torch.Tensor,
                                                           torch.Tensor]:

@@ -100,3 +100,28 @@ def test_default_device_is_the_card(monkeypatch):
     tr = Trainer.build(cfg, TrainConfig(), 10, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, TrainConfig(), tr.params)
+
+
+def test_serving_entry_points_need_the_card(tmp_path, monkeypatch):
+    """``export_parser``, ``ExportedParser`` and ``make_server`` run on the
+    card unless the caller asks for the CPU, and raise without one."""
+    from cliora_tpu_torch.scripts.serve import make_server
+    from cliora_tpu_torch.serving import (
+        ExportedParser,
+        export_parser,
+        save_bundle,
+    )
+
+    cfg = ModelConfig(size=8, input_size=8)
+    tr = Trainer.build(cfg, TrainConfig(), 10, seed=0, device="cpu")
+    bundle = str(tmp_path / "bundle")
+    save_bundle(bundle, cfg, export_parser(cfg, tr.params, [2],
+                                           platforms=["cpu"]))
+    assert ExportedParser(bundle, device="cpu").parse([[1, 2]]) == [(0, 1)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_parser(cfg, tr.params, [2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExportedParser(bundle)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_server(bundle, port=0, warm=False)
