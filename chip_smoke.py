@@ -36,6 +36,18 @@ width with random weights from a seed:
     resumed step has the uninterrupted one's bits; and a capture that
     fails raises rather than stepping eagerly;
   * the port's CLIs on a synthetic grounded corpus (phase ``cli``);
+  * every other model the JAX package builds: the TreeLSTM compose at
+    the bench configuration in bf16 and f32 (phase ``treelstm``: eager and
+    graphed steps, K2-K4 twice a replay, graphed against eager bits, a
+    TreeLSTM DIORA parse on the plain route, the card against the CPU);
+    remat of the chart levels at B=128, L=40, bf16 (phase ``remat``: the
+    unremated step and the full, selective, dots and gathers policies,
+    each graphed, with step ms and peak memory; each against the
+    unremated gradients at dropout 0.1; graphed against eager bits; the
+    unremated peaks that calibrate the auto-remat estimate); the
+    chart-free ``word`` baseline (phase ``word``: no hand kernel); and the
+    train CLI with ``--arch treelstm``, ``--arch word`` and ``--remat
+    --remat_frac 0.85`` (phase ``cli_archs``);
   * serving (phase ``serve``): the README quick-start model exported by
     ``scripts/export_model.py`` (buckets 10/20/40, symbolic batch, weights
     as inputs and baked; four export processes at once with the CLIORA
@@ -80,6 +92,7 @@ No check falls back to the CPU.
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -105,7 +118,7 @@ from cliora_tpu_torch.data.prefetch import device_prefetch
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import init_diora_params, to_device
-from cliora_tpu_torch.ops import inside_cky, span_region
+from cliora_tpu_torch.ops import chart_pass, inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
 from cliora_tpu_torch.scripts import common as cli_common
 from cliora_tpu_torch.scripts import export_model as cli_export
@@ -339,7 +352,7 @@ def ptxas_by_function(lines):
 def leaves(tr, tokens):
     x_span = embed_span(tr.params["embed"],
                         torch.as_tensor(tokens).to(tr.device))
-    return leaf_transform(tr.cfg, tr.params["diora"], x_span)
+    return leaf_transform(tr.cfg, tr.params["diora"], x_span)[0]
 
 
 def flops_and_bytes(b, n, d):
@@ -1395,34 +1408,10 @@ def params_diff(a, b):
 def graphed_vs_eager(flat, batches):
     """From one set of weights, the three batches twice: eager ``step``
     calls against ``steps`` (warm-up steps, the capture, then replays),
-    in f32 and bf16, with dropout off and at 0.1."""
-    out = []
-    seq = batches + batches
-    for dtype in ("float32", "bfloat16"):
-        for dropout in (0.0, 0.1):
-            cfg, tc = train_configs(dtype, attn_dropout=dropout)
-            eager = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
-            graphed = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
-            want = [eager.step(b) for b in seq]
-            got = graphed.steps(seq)
-            rel = max_rel(got, want)
-            pdiff, pbits = params_diff(graphed, eager)
-            rec = {"phase": "train_graphs_vs_eager", "dtype": dtype,
-                   "attn_dropout": dropout, "steps": len(seq),
-                   "replayed_steps": len(seq) - GRAPH_WARMUP_STEPS,
-                   "loss_max_rel_diff": rel,
-                   "losses_equal_bits": all(
-                       torch.equal(g[k], w[k]) for g, w in zip(got, want)
-                       for k in w),
-                   "param_max_abs_diff": pdiff, "params_equal_bits": pbits}
-            emit(rec)
-            check(rel <= STEPS_LOSS_RTOL and pdiff <= STEPS_PARAM_ATOL,
-                  f"{dtype} dropout {dropout}: graphed steps differ from "
-                  f"eager steps (losses {rel}, params {pdiff})")
-            out.append(rec)
-            del eager, graphed
-            torch.cuda.empty_cache()
-    return out
+    in f32 and bf16, with dropout off and at 0.1; equal bits."""
+    return [arch_vs_eager("train_graphs", *train_configs(
+                dtype, attn_dropout=dropout), flat, batches)
+            for dtype in ("float32", "bfloat16") for dropout in (0.0, 0.1)]
 
 
 def graphed_two_keys(rs):
@@ -1585,12 +1574,21 @@ def failed_capture_raises(rs):
 
     trainer_mod.clip_by_global_norm = syncing_clip
     error = None
+    stream = torch.cuda.current_stream()
     try:
         tr.steps([batch])
     except RuntimeError as err:
         error = str(err)
     finally:
         trainer_mod.clip_by_global_norm = clip
+    # the failed capture leaves neither its stream current nor the
+    # allocator routing to its pool: memory freed after it goes back to
+    # the device on empty_cache
+    same_stream = torch.cuda.current_stream() == stream
+    torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    cached = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    released = cached - torch.cuda.memory_reserved()
     after = flatten(tr.params)
     count = tr.opt_state()["count"]
     unchanged = all(np.array_equal(before[k], after[k]) for k in before)
@@ -1598,10 +1596,15 @@ def failed_capture_raises(rs):
     rec = {"phase": "train_graphs_failed_capture", "raised": error is not None,
            "error": (error or "")[:200], "params_unchanged": unchanged,
            "adam_count_after": count, "retry_finite": finite_losses(retry),
-           "adam_count_after_retry": tr.opt_state()["count"]}
+           "adam_count_after_retry": tr.opt_state()["count"],
+           "caller_stream_restored": same_stream,
+           "bytes_released_by_empty_cache": released}
     emit(rec)
     check(error is not None and unchanged and count == GRAPH_WARMUP_STEPS,
           "a failed capture did not raise, or a step ran in its place")
+    check(same_stream and released >= 1 << 30,
+          f"after a failed capture: caller's stream {same_stream}, "
+          f"empty_cache released {released} bytes of a freed GiB")
     check(rec["retry_finite"]
           and rec["adam_count_after_retry"] == GRAPH_WARMUP_STEPS + 1,
           "the capture after a failed one did not step")
@@ -2111,9 +2114,7 @@ def run_cli(stage, main_fn, args, region_features):
     this script's output (the experiment log keeps it): the kernel
     counters zeroed just before and read just after, peak memory, wall
     seconds.  Returns ``(main's result, record)``."""
-    for k in span_region.launches:
-        span_region.launches[k] = 0
-    inside_cky.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2243,25 +2244,32 @@ def upload_timing(obj):
     return out
 
 
+def step_peak(cfg, tc, batch, vocab=V):
+    """Peak memory of one eager train step above what the trainer
+    holds."""
+    tr = Trainer.build(cfg, tc, vocab, seed=SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    check(finite_losses([tr.step(batch)]),
+          f"step of {tuple(batch['sentences'].shape)}: non-finite loss")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del tr
+    free_card()
+    return peak
+
+
 def diora_step_peak(n, vocab):
     """Peak memory of one eager DIORA train step at the DIORA stage's
     configuration (B=32, D=400, E=1024, k_neg=100, f32) on sentences of
     length ``n``, above what the trainer holds."""
-    cfg = ModelConfig(size=400, input_size=1024)
-    tc = TrainConfig(lr=5e-4, k_neg=100, emb_trainable=True)
-    tr = Trainer.build(cfg, tc, vocab, seed=SEED)
     rs = np.random.RandomState(n)
-    batch = {"sentences": rs.randint(2, vocab, (32, n)),
-             "neg_samples": rs.choice(vocab, 100, replace=False)}
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    check(finite_losses([tr.step(batch)]), f"diora step n={n}: non-finite")
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del tr
-    torch.cuda.empty_cache()
-    return peak
+    return step_peak(ModelConfig(size=400, input_size=1024),
+                     TrainConfig(lr=5e-4, k_neg=100, emb_trainable=True),
+                     {"sentences": rs.randint(2, vocab, (32, n)),
+                      "neg_samples": rs.choice(vocab, 100, replace=False)},
+                     vocab)
 
 
 def equal_files(a, b):
@@ -2425,6 +2433,492 @@ def cli_path():
 def cli_rows(experiment_path):
     with open(os.path.join(experiment_path, "parse.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+# -- phases treelstm, remat, word, cli_archs: every model the JAX package
+# builds -------------------------------------------------------------------
+
+# the long-sentence envelope of the JAX package's remat (BASELINE.md:111-122)
+REMAT_N = 40
+# remat variants of the remat phase: (policy, remat_frac), None = unremated
+REMAT_VARIANTS = (None, ("full", 0.0), ("full", 0.85), ("dots", 0.0),
+                  ("gathers", 0.0))
+# a remat step against the unremated one: the JAX test's limits
+# (tests/test_chart_pass.py:189-195)
+REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-4, 2e-6
+# scripts/train_cliora.sh's learning rate: with the bench's 5e-4 the
+# N(0, 1)-init model diverges at L=40 on a fixed batch (the unremated
+# run stops on a non-finite loss within its first steps)
+REMAT_LR = 1e-5
+# unremated peaks that calibrate the auto-remat copy factor, (B, n)
+REMAT_CALIBRATION = ((128, 20), (64, 40), (128, 40))
+ARCH_STEPS = 10
+ARCH_REQUESTS = 5
+CLI_ARCHS_TRAIN, CLI_ARCHS_TEST = 1024, 128
+
+
+def free_card():
+    """Collect unreachable trainers (a reference cycle can keep one, and
+    with it its CUDA graphs' memory pool, alive) and return the cached
+    blocks to the device."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zero_counts():
+    for k in span_region.launches:
+        span_region.launches[k] = 0
+    inside_cky.launches = 0
+
+
+def arch_graphed(tag, cfg, tc, batch, eager_steps=2):
+    """``eager_steps`` ``Trainer.step`` calls, then ``Trainer.steps`` over
+    ARCH_STEPS batches (the warm-up steps, the cache emptied, the capture,
+    replays), a timed run of ARCH_STEPS replays with one sync and a
+    profiled replay: step ms eager and graphed, device-busy ms, idle
+    share, K2-K4 by name in a replay, peak memory.  The counters are read
+    by the caller."""
+    tr = Trainer.build(cfg, tc, V, seed=SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms, losses = [], []
+    for _ in range(eager_steps):
+        t0 = time.perf_counter()
+        metrics = tr.step(batch)
+        losses.append(float(metrics["total_loss"]))          # syncs
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    warm = tr.steps([batch] * GRAPH_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    # the warm-up steps' blocks go back to the device before the capture
+    # takes its own pool
+    free_card()
+    t0 = time.perf_counter()
+    first = tr.steps([batch] * (ARCH_STEPS - GRAPH_WARMUP_STEPS))
+    check(finite_losses(warm + first), f"{tag}: non-finite loss")   # syncs
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    metrics = tr.steps([batch] * ARCH_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ARCH_STEPS
+    check(finite_losses(metrics), f"{tag}: non-finite graphed loss")
+    peak = torch.cuda.max_memory_allocated()
+    calls = {}
+    by_kernel = profile_kernels(lambda: tr.steps([batch]), reps=3,
+                                calls=calls)
+    busy = sum(r["ms"] for r in by_kernel.values())
+    losses += [float(m["total_loss"]) for m in warm + first + metrics]
+    rec = {"eager_step_ms": eager_ms,
+           "capture_and_replays_ms": capture_ms,
+           "graphed_step_ms": step_ms,
+           "graphed_sentences_per_s": batch["sentences"].shape[0]
+           / step_ms * 1e3,
+           "replayed_step_device_busy_ms": (busy if by_kernel
+                                            else "not measured"),
+           "idle_share": 1 - busy / step_ms if by_kernel else "not measured",
+           "device_kernels_per_step": sum(r["count"]
+                                          for r in by_kernel.values()),
+           "graph_launches_per_step": calls.get("cudaGraphLaunch", 0),
+           "launches_per_replayed_step_profiled": {
+               k: own_launches(by_kernel, k)
+               for k in SR_KERNELS + ("segment_reduce", "inside_cky")},
+           "max_memory_allocated_bytes": peak,
+           "peak_above_trainer_bytes": peak - base,
+           "capture_seconds": list(tr.capture_seconds.values()),
+           "total_loss_first": losses[0], "total_loss_last": losses[-1],
+           "top_kernels": dict(sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1]["ms"])[:6])}
+    del tr
+    free_card()
+    return rec
+
+
+def arch_vs_eager(tag, cfg, tc, flat, batches):
+    """From one set of weights, the batches twice: eager ``step`` calls
+    against ``steps`` (warm-up steps, the capture, replays).  Checks
+    equal bits of every loss and parameter."""
+    seq = batches + batches
+    eager = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    want = [eager.step(b) for b in seq]
+    free_card()
+    graphed = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    got = graphed.steps(seq)
+    pdiff, pbits = params_diff(graphed, eager)
+    rec = {"phase": tag + "_vs_eager", "dtype": cfg.compute_dtype,
+           "attn_dropout": cfg.attn_dropout, "steps": len(seq),
+           "replayed_steps": len(seq) - GRAPH_WARMUP_STEPS,
+           "loss_max_rel_diff": max_rel(got, want),
+           "losses_equal_bits": all(torch.equal(g[k], w[k])
+                                    for g, w in zip(got, want) for k in w),
+           "param_max_abs_diff": pdiff, "params_equal_bits": pbits}
+    emit(rec)
+    check(rec["losses_equal_bits"] and pbits,
+          f"{tag} {cfg.compute_dtype}: graphed steps differ from eager "
+          f"steps (losses {rec['loss_max_rel_diff']}, params {pdiff})")
+    del eager, graphed
+    free_card()
+    return rec
+
+
+def card_vs_cpu(tag, cfg, tc, rs):
+    """A small f32 step's losses and gradients and a parse's backpointers,
+    card against CPU (B=6, L=6, D=48)."""
+    small = dict(b=6, n=6, v=100, k=7, regions=5, feats=32)
+    base = Trainer.build(cfg, tc, 100, seed=SEED + 6, device="cpu")
+    flat = perturbed(base.params, rs)
+    batch = train_batch(rs, **small)
+    on = {}
+    for device in ("cuda", "cpu"):
+        metrics, grads = step_grads(cfg, tc, flat, batch, device)
+        res, _ = Trainer(cfg, tc, params_from_numpy(flat, device),
+                         device=device).parse(batch)
+        on[device] = (metrics, {k: g.cpu() for k, g in grads.items()}, res)
+    (m_card, g_card, r_card), (m_cpu, g_cpu, r_cpu) = on["cuda"], on["cpu"]
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu}
+    grad_err = {k: float((g_card[k] - g).abs().max())
+                / max(1.0, float(g.abs().max())) for k, g in g_cpu.items()}
+    rec = {"phase": "cpu_reference", "path": tag, "shape": [6, 6, 48],
+           "losses_card": m_card, "loss_rel_diff": rel,
+           "grad_max_rel_err": max(grad_err.values()),
+           "cky_bp_equal": "cky_bp" not in r_cpu
+           or bool(np.array_equal(r_card["cky_bp"], r_cpu["cky_bp"]))}
+    emit(rec)
+    check(rec["cky_bp_equal"]
+          and all(r <= CPU_LOSS_RTOL for r in rel.values())
+          and rec["grad_max_rel_err"] <= SR_F32_RTOL,
+          f"{tag}: card and CPU differ: {rec}")
+    return rec
+
+
+def treelstm_path(rs):
+    """Phase ``treelstm``: the bench configuration with the TreeLSTM
+    compose, bf16 and f32, through ``Trainer.step`` and ``Trainer.steps``
+    (the main path: K2-K4 twice a step, no K1), graphed against eager
+    bits, a TreeLSTM DIORA parse (plain route) and the card against the
+    CPU.  Returns the main path's counters."""
+    t_phase = time.perf_counter()
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in train_batch(rs, B, N, V, K_NEG, R, F).items()}
+    zero_counts()
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg, tc = train_configs(dtype, arch="treelstm")
+        before = kernel_counts()
+        runs[dtype] = arch_graphed(f"treelstm {dtype}", cfg, tc, batch)
+        after = kernel_counts()
+        runs[dtype]["launches"] = {k: after[k] - before[k] for k in after}
+    launches = kernel_counts()
+    for dtype, rec in runs.items():
+        emit({"phase": "treelstm", "dtype": dtype, "batch": B, "n": N,
+              **rec})
+        in_step = rec["launches_per_replayed_step_profiled"]
+        # 2 eager steps, 2 warm-up steps and the capture: 2 each a step
+        check(all(rec["launches"][k] == 10 for k in SR_KERNELS)
+              and rec["launches"]["inside_cky"] == 0,
+              f"treelstm {dtype}: counters {rec['launches']}, expected 10 "
+              f"of each of K2-K4 and no K1")
+        check(all(in_step[k] == 2 for k in SR_KERNELS),
+              f"treelstm {dtype}: K2-K4 in a replay {in_step}")
+        check(rec["total_loss_last"] < rec["total_loss_first"],
+              f"treelstm {dtype}: loss did not descend")
+
+    for dtype in ("bfloat16", "float32"):
+        cfg, tc = train_configs(dtype, arch="treelstm")
+        base = Trainer.build(cfg, tc, V, seed=SEED + 7, device="cpu")
+        flat = perturbed(base.params, rs)
+        del base
+        arch_vs_eager("treelstm", cfg, tc, flat, [
+            {k: torch.as_tensor(v).to("cuda") for k, v in
+             train_batch(rs, B, N, V, K_NEG, R, F).items()}
+            for _ in range(3)])
+
+    # a TreeLSTM DIORA parse: the plain route, K1 untouched
+    cfg = ModelConfig(size=D, input_size=E, arch="treelstm")
+    tr = Trainer.build(cfg, TrainConfig(), V, seed=SEED)
+    before = kernel_counts()
+    ms, routes = [], set()
+    for _ in range(ARCH_REQUESTS):
+        req = {"sentences": rs.randint(0, V, (B, N))}
+        t0 = time.perf_counter()
+        res, _ = tr.parse(req)
+        decoded = trees.decode_batch(res["cky_bp"], N)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        routes.add(res["parse_impl"])
+        check(all(covers(t, s, N) for t, s in decoded),
+              "treelstm parse: a tree does not cover its sentence")
+    emit({"phase": "treelstm_parse", "dtype": "float32", "batch": B,
+          "n": N, "request_ms": ms,
+          "request_ms_median_warm": statistics.median(ms[1:]),
+          "parse_impl": sorted(routes),
+          "launches": {k: kernel_counts()[k] - before[k] for k in before}})
+    check(routes == {"plain"} and kernel_counts() == before,
+          f"treelstm parse: routes {routes}, counters moved")
+    del tr
+    free_card()
+
+    cfg, tc = train_configs("float32", attn_impl="chunked", attn_dropout=0.0,
+                            arch="treelstm", size=48, input_size=64,
+                            n_regions=5, obj_feat_size=32)
+    card_vs_cpu("treelstm", cfg, dataclasses.replace(tc, k_neg=7), rs)
+    emit({"phase": "treelstm_summary", "launches": launches,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def remat_grads(cfg, tc, flat, batch):
+    """Loss and gradients of one train step's loss on the card at the
+    step's dropout (a fixed generator seed)."""
+    tr = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    tokens, neg, obj, _ = tr._place_batch(batch)
+    total, _ = compute_losses(cfg, tc, tr.params, tokens, neg, obj_feats=obj,
+                              generator=tr.dropout_generator(0), train=True)
+    total.backward()
+    grads = {k: p.grad for k, p in zip(flatten(tr.params),
+                                       tree_leaves(tr.params))
+             if p.grad is not None}
+    return total.detach(), grads
+
+
+def remat_path(rs):
+    """Phase ``remat``: the bench configuration (mlp, bf16, dropout 0.1,
+    ``attn_impl='cuda'``) at the JAX package's long-sentence envelope
+    B=128, L=40, unremated and under each remat variant, graphed (the
+    main path: counters zeroed before, read after); each variant's loss
+    and gradients against the unremated step; graphed remat against
+    eager remat bits; the unremated peaks that calibrate the auto-remat
+    copy factor.  Returns the main path's counters."""
+    t_phase = time.perf_counter()
+    reserved = torch.cuda.memory_reserved()
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in train_batch(rs, B, REMAT_N, V, K_NEG, R, F).items()}
+
+    def configs(variant):
+        kw = ({} if variant is None else
+              dict(remat=True, remat_policy=variant[0],
+                   remat_frac=variant[1]))
+        cfg, tc = train_configs("bfloat16", **kw)
+        return cfg, dataclasses.replace(tc, lr=REMAT_LR)
+
+    zero_counts()
+    runs = {}
+    for variant in REMAT_VARIANTS:
+        name = "off" if variant is None else f"{variant[0]}@{variant[1]}"
+        before = kernel_counts()
+        try:
+            runs[name] = arch_graphed(f"remat {name}", *configs(variant),
+                                      batch)
+            runs[name]["captured"] = True
+        except RuntimeError as err:
+            # a policy that cannot be captured must raise at the capture
+            check(variant is not None and "capture of the train step "
+                  "failed" in str(err) and not isinstance(
+                      err.__cause__, torch.cuda.OutOfMemoryError),
+                  f"remat {name}: {err!r} from {err.__cause__!r}")
+            runs[name] = {"captured": False, "error": repr(err.__cause__)}
+            free_card()
+        runs[name]["launches"] = {k: kernel_counts()[k] - before[k]
+                                  for k in before}
+    launches = kernel_counts()
+    off = runs["off"]
+    check(runs["full@0.0"]["captured"] and runs["full@0.85"]["captured"],
+          "remat: the full policy did not capture")
+    for name, rec in runs.items():
+        if not rec["captured"]:
+            emit({"phase": "remat", "variant": name, "dtype": "bfloat16",
+                  "batch": B, "n": REMAT_N, **rec})
+            continue
+        rec["peak_over_unremated"] = (rec["peak_above_trainer_bytes"]
+                                      / off["peak_above_trainer_bytes"])
+        rec["step_ms_over_unremated"] = (rec["graphed_step_ms"]
+                                         / off["graphed_step_ms"])
+        emit({"phase": "remat", "variant": name, "dtype": "bfloat16",
+              "batch": B, "n": REMAT_N, **rec})
+        check(rec["total_loss_first"] == off["total_loss_first"],
+              f"remat {name}: first loss {rec['total_loss_first']} != "
+              f"unremated {off['total_loss_first']}")
+        check(all(rec["launches"][k] == 10 for k in SR_KERNELS)
+              and all(rec["launches_per_replayed_step_profiled"][k] == 2
+                      for k in SR_KERNELS)
+              and rec["launches"]["inside_cky"] == 0,
+              f"remat {name}: K2-K4 counters {rec['launches']}, replay "
+              f"{rec['launches_per_replayed_step_profiled']}")
+
+    # each remat variant against the unremated step, dropout 0.1, one seed;
+    # the image encoder moved off zero (so that the dropped attention
+    # matters) at 1e-3: at 1e-2 the L=40 chart's scores push the loss
+    # to ~1e22
+    base = Trainer.build(*configs(None), V, seed=SEED + 8, device="cpu")
+    flat = perturbed(base.params, rs, scale=1e-3)
+    del base
+    want_loss, want = remat_grads(*configs(None), flat, batch)
+    for variant in REMAT_VARIANTS[1:]:
+        loss, got = remat_grads(*configs(variant), flat, batch)
+        err = {k: float(((got[k] - w).abs() - REMAT_GRAD_RTOL * w.abs())
+                        .max()) for k, w in want.items()}
+        rec = {"phase": "remat_vs_unremated", "variant": list(variant),
+               "attn_dropout": 0.1, "loss": float(loss),
+               "loss_equal_bits": bool(torch.equal(loss, want_loss)),
+               "grads": len(want),
+               "grads_equal_bits": sum(torch.equal(got[k], w)
+                                       for k, w in want.items()),
+               "max_abs_err_over_rtol_term": max(err.values())}
+        emit(rec)
+        check(rec["loss_equal_bits"] and set(got) == set(want)
+              and math.isfinite(rec["loss"])
+              and all(bool(torch.isfinite(w).all()) for w in want.values())
+              and rec["max_abs_err_over_rtol_term"] <= REMAT_GRAD_ATOL,
+              f"remat {variant}: differs from the unremated step: {rec}")
+        del got
+        free_card()
+    del want
+    free_card()
+
+    # graphed remat against eager remat, at the envelope's selective remat
+    arch_vs_eager("remat", *configs(("full", 0.85)), flat, [
+        {k: torch.as_tensor(v).to("cuda") for k, v in
+         train_batch(rs, B, REMAT_N, V, K_NEG, R, F).items()}
+        for _ in range(3)])
+
+    # the calibration: unremated eager peaks at three shapes
+    cfg, tc = configs(None)
+    auto = dataclasses.replace(cfg, remat="auto")
+    calib = []
+    for b, n in REMAT_CALIBRATION:
+        peak = step_peak(cfg, tc, {
+            k: torch.as_tensor(v).to("cuda")
+            for k, v in train_batch(rs, b, n, V, K_NEG, R, F).items()})
+        rows = (n ** 3 - n) // 2
+        unit = b * D * rows * 2                  # bf16 chart bytes
+        calib.append({"batch": b, "n": n, "peak_bytes": peak,
+                      "chart_rows": rows, "copy_factor": peak / unit,
+                      "auto_remat_at_10gb": chart_pass.remat_enabled(
+                          auto, b, n, D)})
+    emit({"phase": "remat_calibration", "dtype": "bfloat16",
+          "port_copy_factor": chart_pass._ACT_COPY_FACTOR,
+          "budget_gb": auto.remat_budget_gb, "points": calib,
+          "max_copy_factor": max(c["copy_factor"] for c in calib)})
+    emit({"phase": "remat_summary", "launches": launches,
+          "reserved_bytes_at_start": reserved,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def word_path(rs):
+    """Phase ``word``: the chart-free word baseline at B=128, L=20, 36 x
+    2048-d regions, bf16, VG loss: graphed steps (the main path), graphed
+    against eager bits, the parse (grounding scores, no trees), run_eval
+    over one batch.  None of K1-K4 moves.  Returns the main path's
+    counters."""
+    t_phase = time.perf_counter()
+    cfg, tc = train_configs("bfloat16", arch="word")
+    tc = dataclasses.replace(tc, use_contr=False)
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in train_batch(rs, B, N, V, K_NEG, R, F).items()}
+    zero_counts()
+    rec = arch_graphed("word", cfg, tc, batch)
+    launches = kernel_counts()
+    emit({"phase": "word", "dtype": "bfloat16", "batch": B, "n": N,
+          "launches": launches, **rec})
+    base = Trainer.build(cfg, tc, V, seed=SEED + 9, device="cpu")
+    flat = perturbed(base.params, rs)
+    del base
+    arch_vs_eager("word", cfg, tc, flat, [
+        {k: torch.as_tensor(v).to("cuda") for k, v in
+         train_batch(rs, B, N, V, K_NEG, R, F).items()} for _ in range(3)])
+    tr = Trainer(cfg, tc, params_from_numpy(flat, "cuda"))
+    ev = eval_batch(rs, B, N, V, K_NEG, R, F)
+    t0 = time.perf_counter()
+    res, metrics = tr.parse(ev, compute_loss=True)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ev_metrics = run_eval(tr, BatchList([ev]), seed=SEED, use_obj=True)
+    eval_s = time.perf_counter() - t0
+    emit({"phase": "word_parse", "keys": sorted(res),
+          "atten_score_shape": list(res["atten_score"].shape),
+          "parse_ms": parse_ms, "metrics": metrics,
+          "run_eval": ev_metrics, "run_eval_seconds": eval_s})
+    check("cky_bp" not in res
+          and res["atten_score"].shape == (B, N, R)
+          and np.isfinite(res["atten_score"]).all()
+          and 0.0 < ev_metrics["grounding_acc"] <= 1.0,
+          f"word parse: {sorted(res)} {res['atten_score'].shape} "
+          f"{ev_metrics}")
+    check(all(v == 0 for v in launches.values())
+          and kernel_counts() == launches,
+          f"word: a hand kernel launched: {kernel_counts()}")
+    del tr
+    free_card()
+    emit({"phase": "word_summary", "launches": kernel_counts(),
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def with_flag(flags, name, value=None, drop=()):
+    """``flags`` with ``name``'s value set (or the flag added) and the
+    flags in ``drop`` (with their values) left out."""
+    out, i = [], 0
+    while i < len(flags):
+        has_value = i + 1 < len(flags) and not flags[i + 1].startswith("--")
+        if flags[i] not in drop:
+            out += flags[i:i + 1 + has_value]
+        i += 1 + has_value
+    if name in out:
+        out[out.index(name) + 1] = value
+    else:
+        out += [name] + ([] if value is None else [value])
+    return out
+
+
+def cli_archs_path():
+    """Phase ``cli_archs``: the train CLI for one epoch each with
+    ``--arch treelstm`` (train_diora.sh's flags), ``--arch word
+    --obj_feats --vg_loss`` and ``--remat --remat_frac 0.85`` (on
+    train_cliora.sh's flags), on a synthetic grounded corpus of
+    CLI_ARCHS_TRAIN + CLI_ARCHS_TEST captions.  Returns each stage's
+    counters."""
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        corpus = os.path.join(work, "corpus")
+        arrays, route = synthetic_flickr(corpus, CLI_ARCHS_TRAIN,
+                                         CLI_ARCHS_TEST)
+        data = ["--data_type", "flickr",
+                "--train_path", os.path.join(corpus, "flickr_train.json"),
+                "--validation_path", os.path.join(corpus, "flickr_test.json"),
+                "--data_path", corpus + "/", "--max_epoch", "1"]
+        stages = {
+            "treelstm": (with_flag(DIORA_FLAGS, "--arch", "treelstm"), None),
+            "word": (with_flag(with_flag(CLIORA_FLAGS, "--arch", "word",
+                                         drop=("--use_contr",
+                                               "--alpha_contr")),
+                               "--attn_impl", "cuda"), arrays),
+            "remat": (CLIORA_FLAGS + ["--remat", "--remat_frac", "0.85",
+                                      "--attn_impl", "cuda"], arrays)}
+        for stage, (flags, regions) in stages.items():
+            path = os.path.join(work, stage)
+            args = flags + data + CLI_RUN_FLAGS + ["--experiment_path", path]
+            (tr, records), rec = run_cli("cli_archs_" + stage,
+                                         cli_train.main, args, regions)
+            rec = cli_train_record(rec, tr, records, path)
+            rec.update({"arch": tr.cfg.arch, "remat": tr.cfg.remat,
+                        "remat_frac": tr.cfg.remat_frac,
+                        "corpus_route": route})
+            emit(rec)
+            launches[stage] = rec["launches"]
+            want = (2 * (rec["warmup_steps"] + rec["graphs"])
+                    if stage == "remat" else 0)
+            check(any("EPOCH-END" in line for line in rec["epoch_log"])
+                  and all(rec["launches"][k] == want for k in SR_KERNELS)
+                  and rec["launches"]["inside_cky"] == 0,
+                  f"cli_archs {stage}: {rec['epoch_log']} launches "
+                  f"{rec['launches']}, expected {want} of each of K2-K4 "
+                  f"and no K1")
+            del tr
+            free_card()
+    emit({"phase": "cli_archs_summary", "launches": launches,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # -- phase serve: bundles, CUDA graphs per shape, the micro-batched server ----
@@ -3086,12 +3580,26 @@ def main():
     cliora_parse_path(np.random.RandomState(SEED + 1))
     entries += train_path(rs)
     torch.cuda.empty_cache()
+    free_card()
     cli = cli_path()
-    torch.cuda.empty_cache()
+    free_card()
+    archs = {"treelstm": treelstm_path(np.random.RandomState(SEED + 3))}
+    free_card()
+    archs["remat"] = remat_path(np.random.RandomState(SEED + 4))
+    free_card()
+    archs["word"] = word_path(np.random.RandomState(SEED + 5))
+    free_card()
+    cli_archs = cli_archs_path()
+    free_card()
     cli["serve"] = serve_path()
     for entry in entries:
         entry["cli_launches"] = {stage: counts[entry["name"]]
                                  for stage, counts in cli.items()}
+        entry["arch_launches"] = {
+            **{phase: counts[entry["name"]]
+               for phase, counts in archs.items()},
+            **{"cli_archs_" + stage: counts[entry["name"]]
+               for stage, counts in cli_archs.items()}}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -65,22 +65,30 @@ def image_encoder_forward(ip, obj_feats: torch.Tensor):
 def leaf_transform(cfg: ModelConfig, dp, x_span: torch.Tensor,
                    obj_span: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   train: bool = False) -> torch.Tensor:
-    """Leaf vectors for the inside chart, (B, L, D) f32.
+                   train: bool = False):
+    """Leaf vectors for the inside chart: ``(h, c)``, each (B, L, D) f32.
 
     DIORA:  h = norm(tanh(leaf_fc(x)))  (diora.py:58-63,283-292)
     CLIORA: h = norm(norm(tanh(leaf_fc(x))) + attend(., obj))
             (cliora.py:71-80,290-301); the leaf attention runs in f32, as
             in the JAX package.
+    TreeLSTM: also the leaf cell c = norm(tanh(leaf_fc_c(x))); c is
+    ``None`` for the mlp arch.  (cliora_tpu/models/diora.py:55-79)
     """
-    h = leaf_mlp(dp["inside_compose"], x_span)
+    cp = dp["inside_compose"]
+    h = leaf_mlp(cp, x_span)
     if cfg.use_obj:
         h = normalize(cfg.normalize, h)
         cxt = region_attention(h, obj_span, temp=cfg.attn_temp,
                                dropout=cfg.attn_dropout,
                                generator=generator, train=train)
         h = h + cxt
-    return normalize(cfg.normalize, h)
+    h = normalize(cfg.normalize, h)
+    c = None
+    if cfg.arch == "treelstm":
+        c = normalize(cfg.normalize, torch.tanh(linear(cp["leaf_fc_c"],
+                                                       x_span)))
+    return h, c
 
 
 def diora_forward(cfg: ModelConfig, params, x_span: torch.Tensor,
@@ -112,9 +120,9 @@ def diora_forward(cfg: ModelConfig, params, x_span: torch.Tensor,
     dp = params["diora"]
     run_outside = cfg.outside if outside is None else outside
 
-    h0 = leaf_transform(cfg, dp, x_span, obj_span=obj_span,
-                        generator=generator, train=train)
-    chart = run_chart(cfg, dp, h0, obj=obj_span, generator=generator,
+    h0, c0 = leaf_transform(cfg, dp, x_span, obj_span=obj_span,
+                            generator=generator, train=train)
+    chart = run_chart(cfg, dp, h0, c0=c0, obj=obj_span, generator=generator,
                       train=train, with_cky=with_cky, outside=run_outside,
                       lengths=lengths)
 

@@ -6,8 +6,8 @@ parameter is drawn from N(0, 1) -- the reference calls
 ``param.data.normal_()`` on everything after construction
 (cliora/net/diora.py:234-237, cliora/net/trainer.py:214-217,41-44) --
 and the image encoder of a CLIORA model is zero (cliora/net/utils.py:
-45-50).  The
-draws come from an explicit ``torch.Generator`` on the CPU, so a seed
+45-50); the TreeLSTM gate matrix is scaled by 1/sqrt(2D).  The draws
+come from an explicit ``torch.Generator`` on the CPU, so a seed
 gives the same weights on every device; they differ from the JAX
 package's ``jax.random`` draws (carry those across with
 ``training.checkpoint.params_from_numpy``).
@@ -31,6 +31,16 @@ def _init_linear(gen, out_dim, in_dim):
 
 def _init_compose(gen, cfg: ModelConfig, leaf: bool):
     D = cfg.size
+    if cfg.arch == "treelstm":
+        # scaled, not N(0, 1): a unit-variance 5D x 2D gate matrix
+        # saturates every sigmoid and tanh (cliora_tpu/models/params.py:
+        # 34-47); the reference ships no TreeLSTM to match
+        cp = {"W": _normal(gen, 5 * D, 2 * D) / np.sqrt(2 * D),
+              "b": torch.zeros(5 * D, dtype=torch.float32)}
+        if leaf:
+            cp["leaf_fc"] = _init_linear(gen, D, D)
+            cp["leaf_fc_c"] = _init_linear(gen, D, D)
+        return cp
     cp = {"fc0": _init_linear(gen, D, 2 * D), "fc1": _init_linear(gen, D, D)}
     if leaf:
         cp["leaf_fc"] = _init_linear(gen, D, D)
@@ -112,13 +122,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, embeddings,
                 device="cpu"):
     """Full Net parameter tree (reference: cliora/net/trainer.py:227-241).
 
-    Drawn from the CPU generator ``gen``, then moved to ``device``.
+    Drawn from the CPU generator ``gen``, then moved to ``device``.  The
+    ``word`` baseline is chart-free: no ``diora`` or ``reconstruct``.
     """
-    params = {
-        "embed": init_embed_params(gen, cfg, embeddings),
-        "diora": init_diora_params(gen, cfg),
-        "reconstruct": init_recon_params(gen, cfg),
-    }
+    params = {"embed": init_embed_params(gen, cfg, embeddings)}
+    if cfg.arch != "word":
+        params["diora"] = init_diora_params(gen, cfg)
+        params["reconstruct"] = init_recon_params(gen, cfg)
     if cfg.use_obj:
         params["img_encoder"] = init_image_encoder_params(cfg)
     return to_device(params, device)

@@ -154,18 +154,32 @@ def bilinear(mat, a, b, compute_dtype=torch.float32) -> torch.Tensor:
     return lowp_einsum("...md,...md->...m", am, b, compute_dtype)
 
 
+def dropout_keep(generator: Optional[torch.Generator], shape,
+                 dropout: float, device) -> torch.Tensor:
+    """The keep mask of attention dropout, drawn from ``generator``
+    (which must live on ``device``): True with probability
+    ``1 - dropout``."""
+    if generator is None:
+        raise ValueError("attention dropout needs a torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) \
+        < 1.0 - dropout
+
+
 def region_attention(h: torch.Tensor, obj: torch.Tensor, *,
                      temp: float = 1.0, dropout: float = 0.0,
                      generator: Optional[torch.Generator] = None,
-                     train: bool = False,
-                     compute_dtype=torch.float32) -> torch.Tensor:
+                     train: bool = False, compute_dtype=torch.float32,
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-head cross-attention from span vectors to object regions.
 
     Per-example only: the reference computes a B x B einsum and takes its
     diagonal (cliora/net/cliora.py:35-42); this computes just the
     diagonal.  No learned projections: q/k/v are used raw.  Dropout on
-    the attention probabilities draws from ``generator``, which must live
-    on ``h``'s device.  (counterpart of cliora_tpu/ops/core.py:169-191)
+    the attention probabilities applies ``keep``, the (B, L, R) mask of
+    :func:`dropout_keep`, or draws one from ``generator``.  (A chart
+    level that may be recomputed in the backward draws its mask before
+    the level, so that forward and recompute drop the same
+    probabilities.)  (counterpart of cliora_tpu/ops/core.py:169-191)
 
     Args:
       h:   (B, L, D) query span vectors.
@@ -176,13 +190,36 @@ def region_attention(h: torch.Tensor, obj: torch.Tensor, *,
     score = lowp_einsum("bld,brd->blr", h, obj, compute_dtype) / temp
     prob = torch.softmax(score, dim=-1)
     if train and dropout > 0.0:
-        if generator is None:
-            raise ValueError("attention dropout needs a torch.Generator")
-        keep = torch.rand(prob.shape, generator=generator,
-                          device=prob.device) < 1.0 - dropout
+        if keep is None:
+            keep = dropout_keep(generator, prob.shape, dropout, prob.device)
         prob = torch.where(keep, prob / (1.0 - dropout),
                            torch.zeros((), dtype=prob.dtype,
                                        device=prob.device))
     # context comes back in the caller's h dtype: the residual add and
     # re-norm then stay in the chart dtype
     return lowp_einsum("blr,brd->bld", prob, obj, compute_dtype, h.dtype)
+
+
+def compose_treelstm(cp, left, right, compute_dtype=torch.float32):
+    """Binary TreeLSTM composition (the DIORA lineage's TreeLSTM cell).
+
+    ``gates = [l_h; r_h] W^T + b`` in ``compute_dtype``, split into
+    i, f_l, f_r, o, g; ``c = sig(i) tanh(g) + sig(f_l) c_l + sig(f_r) c_r``
+    and ``h = sig(o) tanh(c)``, both returned as f32.
+    (counterpart of cliora_tpu/ops/core.py:194-217)
+
+    Args:
+      cp: params with ``W`` (5D, 2D) and ``b`` (5D,), torch layout.
+      left / right: ``(h, c)`` tuples, each (..., D).
+    Returns: ``(h, c)``.
+    """
+    lh, lc = left
+    rh, rc = right
+    x = torch.cat([lh, rh], dim=-1).to(compute_dtype)
+    gates = x @ cp["W"].T.to(compute_dtype) + cp["b"].to(compute_dtype)
+    i, fl, fr, o, g = torch.chunk(gates, 5, dim=-1)
+    c = (torch.sigmoid(i) * torch.tanh(g)
+         + torch.sigmoid(fl) * lc.to(compute_dtype)
+         + torch.sigmoid(fr) * rc.to(compute_dtype))
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h.float(), c.float()

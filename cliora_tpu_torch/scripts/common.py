@@ -52,6 +52,10 @@ def model_config_from_options(options, embeddings) -> ModelConfig:
         compress=options.compress,
         use_obj=options.obj_feats,
         compute_dtype="bfloat16" if options.bf16 else "float32",
+        remat=options.remat,
+        remat_frac=options.remat_frac,
+        remat_policy=options.remat_policy,
+        remat_budget_gb=options.remat_budget_gb,
         parse_impl=options.parse_impl,
     )
 

@@ -92,6 +92,10 @@ def run(options, region_features=None):
     metrics.  ``region_features``: the Flickr test split's ``(features,
     bboxes, pos_bboxes)`` arrays in place of its HDF5 file."""
     logger = get_logger()
+    if options.arch == "word":
+        # the JAX script fails on the missing ``cky_bp`` of this arch
+        raise ValueError("--arch word parses no trees: it is a grounding "
+                         "baseline (train.py's eval reports its grounding)")
     if options.visualize and importlib.util.find_spec("cv2") is None:
         raise ImportError("--visualize needs cv2 (opencv-python)")
     validation_dataset = get_validation_dataset(options)

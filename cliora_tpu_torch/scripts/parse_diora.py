@@ -33,6 +33,10 @@ from cliora_tpu_torch.utils.observability import (
 
 def run(options):
     logger = get_logger()
+    if options.arch == "word":
+        # the JAX script fails on the missing ``cky_bp`` of this arch
+        raise ValueError("--arch word parses no trees: it is a grounding "
+                         "baseline (train.py's eval reports its grounding)")
     validation_dataset = get_validation_dataset(options)
     validation_iterator = get_validation_iterator(options,
                                                   validation_dataset)

@@ -139,6 +139,13 @@ def export_parser(cfg, params, bucket_lengths: Sequence[int], *,
     from cliora_tpu_torch.chart.indices import INDEX
     from cliora_tpu_torch.training.checkpoint import flatten
 
+    if cfg.arch != "mlp":
+        # the programs parse padded buckets, which the JAX package's
+        # chart pass takes for the mlp arch only, and the word baseline
+        # has no chart to parse (cliora_tpu/serving.py:66-75 fails there)
+        raise ValueError(f"arch={cfg.arch!r}: a bundle serves the mlp "
+                         "chart only (padded buckets support the mlp arch "
+                         "only; the word baseline parses no trees)")
     platforms = [str(p) for p in platforms] if platforms else ["cuda"]
     for p in platforms:
         if p not in ("cuda", "cpu"):

@@ -13,7 +13,10 @@ package.
 The step runs embed -> image encoder -> leaf transform with region
 attention -> inside pass with region attention -> outside pass ->
 reconstruction, VG and contrastive losses -> backward -> global-norm clip
--> Adam.  Parameters stay f32 whatever ``compute_dtype`` says.  Frozen
+-> Adam, for the mlp and TreeLSTM composes, with the chart levels
+rematerialized in the backward under ``ModelConfig.remat``; the
+chart-free ``word`` baseline runs embed -> image encoder -> word x
+region scores -> VG loss (:func:`word_grounding_losses`).  Parameters stay f32 whatever ``compute_dtype`` says.  Frozen
 parameters get no gradient and no Adam state, so the clip norm is taken
 over the trainable ones (reference: cliora/net/trainer.py:450-455).
 """
@@ -36,6 +39,7 @@ from cliora_tpu_torch.models.diora import (
     leaf_transform,
 )
 from cliora_tpu_torch.models.params import init_params, to_device
+from cliora_tpu_torch.models.word_grounding import word_grounding_forward
 from cliora_tpu_torch.ops import inside_cky
 from cliora_tpu_torch.ops.span_region import span_region_max
 from cliora_tpu_torch.training.losses import (
@@ -246,11 +250,30 @@ def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
     return metrics
 
 
+def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
+                          tokens, obj_feats, lengths=None):
+    """The chart-free ``word`` baseline's forward and its one loss, the VG
+    InfoNCE over the word x region scores.  Returns ``(out, metrics)``.
+    (cliora_tpu/training/trainer.py:196-211; reference:
+    cliora/net/vg.py:477-482)
+    """
+    _, x_word = embed_forward(params["embed"], tokens,
+                              trainable=tc.emb_trainable)
+    _, obj_word = image_encoder_forward(params["img_encoder"], obj_feats)
+    wg = word_grounding_forward(x_word, obj_word)
+    vgl = vg_loss(wg.vg_atten_score, alpha_vg=tc.alpha_vg, lengths=lengths)
+    return wg, {"vg_loss": vgl, "total_loss": vgl}
+
+
 def compute_losses(cfg: ModelConfig, tc: TrainConfig, params, tokens,
                    neg_samples, obj_feats=None,
                    generator: Optional[torch.Generator] = None,
                    train: bool = True, lengths=None):
     """Forward + all enabled losses; returns ``(total, metrics)``."""
+    if cfg.arch == "word":
+        _, metrics = word_grounding_losses(cfg, tc, params, tokens,
+                                           obj_feats, lengths=lengths)
+        return metrics["total_loss"], metrics
     out, aux = forward_outputs(cfg, tc, params, tokens, obj_feats=obj_feats,
                                generator=generator, train=train,
                                lengths=lengths)
@@ -274,6 +297,22 @@ DROPOUT_SEED = 1729
 # ``Trainer.steps`` captures its graph (PyTorch's whole-network capture
 # warms up so): they are real steps of the batches given
 GRAPH_WARMUP_STEPS = 2
+
+
+def _end_failed_capture(capture, device, pool):
+    """Undo what a failed ``torch.cuda.graph`` capture leaves behind: its
+    capture stream stays the current stream, and the caching allocator
+    keeps routing the device's allocations to the graph's pool, so that
+    ``empty_cache`` and the allocator's own out-of-memory retry release
+    no cached block again (seen with torch 2.11 on an H100)."""
+    if torch.cuda.current_stream(device) == capture.capture_stream:
+        capture.stream_ctx.__exit__(None, None, None)
+    try:
+        torch._C._cuda_endAllocateToPool(
+            torch.cuda.current_device() if device.index is None
+            else device.index, pool)
+    except RuntimeError:
+        pass                # the capture ended its pool routing itself
 
 
 class _StepGraph:
@@ -300,10 +339,16 @@ class _StepGraph:
         self.generator = torch.Generator(device=trainer.device)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(self.generator)
-        with torch.cuda.graph(self.graph, pool=pool):
-            metrics = trainer._train_step(*self.inputs, self.generator)
-            self.names = list(metrics)
-            self.out = torch.stack([metrics[k].float() for k in self.names])
+        capture = torch.cuda.graph(self.graph, pool=pool)
+        try:
+            with capture:
+                metrics = trainer._train_step(*self.inputs, self.generator)
+                self.names = list(metrics)
+                self.out = torch.stack([metrics[k].float()
+                                        for k in self.names])
+        except BaseException:
+            _end_failed_capture(capture, trainer.device, pool)
+            raise
 
     def replay(self, batch, seed: int) -> Dict[str, torch.Tensor]:
         for dst, src in zip(self.inputs, batch):
@@ -625,10 +670,12 @@ class Trainer:
         # the fused kernel implements the text-only mlp compose + soft
         # split softmax over full-length sentences, and returns
         # backpointers only (the JAX package's gating,
-        # cliora_tpu/training/trainer.py:745-757)
+        # cliora_tpu/training/trainer.py:745-757): TreeLSTM params have
+        # no fc0/fc1 and no c chart there
         if impl == "cuda":
             B, n = np.shape(batch_map["sentences"])
             if (compute_loss or with_chart or outside or self.cfg.use_obj
+                    or self.cfg.arch != "mlp"
                     or self.cfg.aggregate != "soft"
                     or batch_map.get("lengths") is not None
                     or not inside_cky.supports(n, self.cfg.size, B,
@@ -660,9 +707,13 @@ class Trainer:
         loss of ``losses_from(..., train=False)`` to a float under
         ``compute_loss``, else is empty.
 
-        Routing keeps the JAX package's gating: a CLIORA model, a padded
-        batch, and any request for losses, charts or the outside pass take
-        the plain route.  ``impl`` overrides ``cfg.parse_impl``.  The two
+        The chart-free ``word`` baseline returns ``atten_score`` alone (no
+        trees; cliora_tpu/training/trainer.py:463-468), with its VG loss
+        under ``compute_loss``.
+
+        Routing keeps the JAX package's gating: a CLIORA model, a TreeLSTM
+        or ``word`` model, a padded batch, and any request for losses,
+        charts or the outside pass take the plain route.  ``impl`` overrides ``cfg.parse_impl``.  The two
         routes group fc0's sums differently (the kernel adds ``W0[:, :D]
         l`` and ``W0[:, D:] r``; the plain chart pass takes one product
         over ``[l; r]``), so at f32 a near-tie split can still pick
@@ -676,7 +727,7 @@ class Trainer:
             tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
                                      dtype=torch.int64).to(self.device)
             dp = self.params["diora"]
-            h0 = leaf_transform(self.cfg, dp,
+            h0, _ = leaf_transform(self.cfg, dp,
                                 embed_span(self.params["embed"], tokens))
             _, bp, _ = inside_cky.fused_inside_cky(
                 dp, h0, norm=self.cfg.normalize,
@@ -690,6 +741,14 @@ class Trainer:
         if batch_map.get("neg_samples") is None:
             batch_map = {**batch_map, "neg_samples": np.zeros(1, np.int64)}
         tokens, neg, obj, lengths = self._place_batch(batch_map)
+        if self.cfg.arch == "word":
+            # chart-free baseline: no trees, grounding scores only
+            wg, metrics = word_grounding_losses(
+                self.cfg, self.tc, self.params, tokens, obj, lengths=lengths)
+            res = {"atten_score": wg.atten_score.cpu().numpy(),
+                   "parse_impl": route}
+            return res, ({k: float(v) for k, v in metrics.items()}
+                         if compute_loss else {})
         out, aux = forward_outputs(
             self.cfg, self.tc, self.params, tokens, obj_feats=obj,
             train=False, with_cky=True, outside=outside, lengths=lengths)

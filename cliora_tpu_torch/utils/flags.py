@@ -221,7 +221,10 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", nargs="?", const=True, default=False,
                    type=lambda v: v if v == "auto" else _bool_flag(v),
                    help="rematerialize chart levels in the backward "
-                        "(not ported yet: ROADMAP A4).")
+                        "(torch.utils.checkpoint): bare --remat forces "
+                        "it on; '--remat auto' decides per batch shape "
+                        "from an activation-memory estimate against "
+                        "--remat_budget_gb.")
     p.add_argument("--remat_budget_gb", default=10.0, type=float,
                    help="device-memory budget of '--remat auto'.")
     p.add_argument("--steps_per_call", default=1, type=int,
@@ -313,9 +316,6 @@ _UNPORTED = (
     ("--world_size", lambda o: o.world_size is not None, "A8"),
     ("--zero1", lambda o: o.zero1, "A8"),
     ("--ckpt_backend orbax", lambda o: o.ckpt_backend == "orbax", "A5"),
-    ("--remat", lambda o: bool(o.remat), "A4"),
-    ("--arch treelstm", lambda o: o.arch == "treelstm", "A4"),
-    ("--arch word", lambda o: o.arch == "word", "A10"),
     ("--emb elmo", lambda o: o.emb == "elmo", "A6"),
 )
 

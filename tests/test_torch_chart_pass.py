@@ -40,7 +40,7 @@ def _charts(n, aggregate, compute_dtype="float32", seed=0):
 @pytest.mark.parametrize("aggregate", ["soft", "hard"])
 @pytest.mark.parametrize("n", [3, 7, 12])
 def test_inside_pass_matches_jax(n, aggregate):
-    want, (ih, is_, bp, val) = _charts(n, aggregate)
+    want, (ih, is_, _, bp, val) = _charts(n, aggregate)
     # the tolerances of tests/test_reference_parity.py:66-74
     np.testing.assert_allclose(ih.numpy(), np.asarray(want.inside_h),
                                atol=2e-5)
@@ -58,7 +58,7 @@ def test_inside_pass_bf16_tracks_jax():
     CPU matmuls differ in summation order, so backpointers may differ on
     near-ties.  The JAX backends themselves disagree on ~0.5% of cells
     (cliora_tpu/ops/pallas_chart.py:44-45)."""
-    want, (ih, is_, bp, val) = _charts(12, "soft", "bfloat16")
+    want, (ih, is_, _, bp, val) = _charts(12, "soft", "bfloat16")
     assert ih.dtype == torch.bfloat16
     agree = np.mean(bp.numpy() == np.asarray(want.cky_bp))
     assert agree >= 0.95, agree

@@ -39,8 +39,9 @@ BF16_BP_AGREE = 0.95     # test_parse_bf16_tracks_jax
 BF16_COS = 0.99
 
 
-def _configs(use_obj, compute_dtype="float32"):
-    model = dict(size=D, input_size=E, compute_dtype=compute_dtype)
+def _configs(use_obj, compute_dtype="float32", **model_kw):
+    model = dict(size=D, input_size=E, compute_dtype=compute_dtype,
+                 **model_kw)
     train = dict(lr=1e-3, k_neg=K, emb_trainable=True)
     if use_obj:
         model.update(use_obj=True, n_regions=R, obj_feat_size=F,
@@ -145,20 +146,24 @@ def test_diora_parse_with_loss_and_chart_matches_jax():
     _assert_parse_matches(got, want, got_m, want_m)
 
 
-@pytest.mark.parametrize("use_obj,kwargs,route", [
-    (True, {}, "plain"),
-    (False, {}, "cuda"),
-    (False, dict(compute_loss=True), "plain"),
-    (False, dict(with_chart=True), "plain"),
-    (False, dict(outside=True), "plain"),
-], ids=["cliora", "diora", "diora-loss", "diora-chart", "diora-outside"])
-def test_route_keeps_the_jax_gating(monkeypatch, use_obj, kwargs, route):
-    """On a CUDA trainer the kernel K1 decodes only a text-only request
-    for backpointers alone; a CLIORA model, losses, charts and the
-    outside pass take the plain route (cliora_tpu/training/trainer.py:
-    745-757).  The trainer's device is only claimed here: the route is
-    decided before anything runs."""
-    _, _, cfg, tc = _configs(use_obj)
+@pytest.mark.parametrize("use_obj,kwargs,route,arch", [
+    (True, {}, "plain", "mlp"),
+    (False, {}, "cuda", "mlp"),
+    (False, dict(compute_loss=True), "plain", "mlp"),
+    (False, dict(with_chart=True), "plain", "mlp"),
+    (False, dict(outside=True), "plain", "mlp"),
+    (False, {}, "plain", "treelstm"),
+    (True, {}, "plain", "word"),
+], ids=["cliora", "diora", "diora-loss", "diora-chart", "diora-outside",
+        "diora-treelstm", "word"])
+def test_route_keeps_the_jax_gating(monkeypatch, use_obj, kwargs, route,
+                                    arch):
+    """On a CUDA trainer the kernel K1 decodes only a text-only mlp
+    request for backpointers alone; a CLIORA model, a TreeLSTM or word
+    model, losses, charts and the outside pass take the plain route
+    (cliora_tpu/training/trainer.py:745-757).  The trainer's device is
+    only claimed here: the route is decided before anything runs."""
+    _, _, cfg, tc = _configs(use_obj, arch=arch)
     ttr = tt.Trainer.build(cfg, tc, V, device="cpu")
     monkeypatch.setattr(ttr, "device", torch.device("cuda"))
     assert ttr._route("cuda", _batch(0, use_obj=use_obj), **kwargs) == route

@@ -195,15 +195,28 @@ def test_flags_parse_like_jax(script):
 @pytest.mark.parametrize("flag, item", [
     (["--mp", "2"], "A8"), (["--n_devices", "2"], "A8"),
     (["--world_size", "2"], "A8"), (["--zero1"], "A8"),
-    (["--ckpt_backend", "orbax"], "A5"), (["--remat"], "A4"),
-    (["--remat", "auto"], "A4"), (["--arch", "treelstm"], "A4"),
-    (["--arch", "word"], "A10"), (["--emb", "elmo"], "A6")])
+    (["--ckpt_backend", "orbax"], "A5"), (["--emb", "elmo"], "A6")])
 def test_unported_flags_raise(flag, item, tmp_path):
     """A flag whose feature is not ported yet raises, naming the ROADMAP
     item, instead of being accepted and ignored."""
     args = flag + ["--experiment_path", str(tmp_path)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_flags.parse_args(port_flags.argument_parser(), args)
+
+
+@pytest.mark.parametrize("flag, field, value", [
+    (["--remat"], "remat", True), (["--remat", "auto"], "remat", "auto"),
+    (["--arch", "treelstm"], "arch", "treelstm"),
+    (["--arch", "word", "--obj_feats"], "arch", "word")])
+def test_model_flags_reach_the_config(flag, field, value, tmp_path):
+    """The remat and arch flags, refused until the TreeLSTM, remat and
+    word slice of the port, now parse and reach ``ModelConfig``."""
+    from cliora_tpu_torch.scripts.common import model_config_from_options
+
+    options = port_flags.parse_args(
+        port_flags.argument_parser(),
+        flag + ["--experiment_path", str(tmp_path)])
+    assert getattr(model_config_from_options(options, 100), field) == value
 
 
 def test_port_route_names(tmp_path):

@@ -79,7 +79,7 @@ def test_plain_matches_port_chart_pass(n):
     """The two port routes decode the same trees at f32."""
     dp, h0 = _port_case(5, n, D)
     s, bp, val = inside_cky.fused_inside_cky_plain(dp, h0)
-    _, want_s, want_bp, want_val = inside_pass(ModelConfig(size=D), dp, h0,
+    _, want_s, _, want_bp, want_val = inside_pass(ModelConfig(size=D), dp, h0,
                                                with_cky=True)
     torch.testing.assert_close(bp, want_bp, atol=0, rtol=0)
     torch.testing.assert_close(s, want_s, atol=1e-4, rtol=0)

@@ -283,3 +283,32 @@ def test_graphed_steps_match_eager(cuda, attn_dropout):
     want_p = tck.flatten(eager.params)
     for k, v in tck.flatten(graphed.params).items():
         np.testing.assert_allclose(v, want_p[k], atol=1e-6, err_msg=k)
+
+
+def test_failed_capture_leaves_the_allocator_free(cuda, monkeypatch):
+    """A capture that fails (a host sync inside the step) raises, and
+    leaves neither its capture stream current nor the caching allocator
+    routing to the graph's pool: memory freed afterwards goes back to the
+    device on ``empty_cache``, and the next call captures."""
+    tr = _port_trainer(_init(), device=cuda)
+    batches = _batches(tt.GRAPH_WARMUP_STEPS + 2, seed=4)
+    tr.steps(batches[:tt.GRAPH_WARMUP_STEPS])
+    clip = tt.clip_by_global_norm
+
+    def syncing_clip(grads, max_norm):
+        clipped, norm = clip(grads, max_norm)
+        float(norm)
+        return clipped, norm
+
+    stream = torch.cuda.current_stream()
+    monkeypatch.setattr(tt, "clip_by_global_norm", syncing_clip)
+    with pytest.raises(RuntimeError, match="capture"):
+        tr.steps(batches[-2:-1])
+    monkeypatch.setattr(tt, "clip_by_global_norm", clip)
+    assert torch.cuda.current_stream() == stream
+    torch.empty(1 << 30, dtype=torch.uint8, device=cuda)
+    cached = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    assert cached - torch.cuda.memory_reserved() >= 1 << 30
+    retry = tr.steps(batches[-1:])[0]
+    assert all(np.isfinite(float(v)) for v in retry.values())
