@@ -61,6 +61,20 @@ width with random weights from a seed:
     ``Trainer.parse(impl="plain")`` on the same padded rows and every
     replay its eager program, bit for bit; no call after warmup runs
     eagerly; none of K1-K4 is launched;
+  * data parallelism (phase ``dp``): K2-K4 at the two-rank step's
+    shapes (64 local sentences against 128 gathered images) against
+    their plain versions; the script started again under
+    ``python -m torch.distributed.run --standalone`` (``--dp-child``):
+    a one-rank NCCL world whose graphed bf16 and f32 steps, with the
+    gradient all-reduce and the image gathers captured, equal the
+    no-group steps bit for bit, and so does ZeRO-1 (its ``.opt.pkl``
+    too), timed in turns against them, a profiled replay, an
+    ``AsyncSaver`` save followed at once by a replay and restored into a
+    fresh trainer, a DIORA ``run_eval`` (K1), and the train CLI with
+    ``--zero1 --ckpt_backend orbax`` and ``--resume auto``; then two gloo
+    ranks sharing the card (eager f32 steps, 64 + 64 rows) against one
+    process, ZeRO-1 against replicated, a world-2 DCP save restored at
+    world 1, ``Trainer.steps`` refused under gloo;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -83,7 +97,9 @@ the VG and f32 contrastive calls K2's f32 route is also timed against a
 route (accumulators in registers) on all-ties against random argmax; the
 build fails if that K4 kernel spills.
 
-Prints one JSON object per phase, then the ``kernels`` summary, then the
+Prints one JSON object per phase, then the ``kernels`` summary (each
+kernel's launches on the main paths, by phase and stage: ``cli_launches``,
+``arch_launches``, ``dp_launches``), then the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before the last line; without a CUDA device it exits non-zero at once.
@@ -100,6 +116,7 @@ import math
 import os
 import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -108,6 +125,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cliora_tpu_torch import kernels, native, serving
 from cliora_tpu_torch.analysis import trees
@@ -120,12 +138,15 @@ from cliora_tpu_torch.models.diora import embed_span, leaf_transform
 from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import chart_pass, inside_cky, span_region
 from cliora_tpu_torch.ops.core import unit_norm
+from cliora_tpu_torch.parallel import multihost
+from cliora_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from cliora_tpu_torch.scripts import common as cli_common
 from cliora_tpu_torch.scripts import export_model as cli_export
 from cliora_tpu_torch.scripts import parse as cli_parse
 from cliora_tpu_torch.scripts import parse_diora as cli_parse_diora
 from cliora_tpu_torch.scripts import serve as cli_serve
 from cliora_tpu_torch.scripts import train as cli_train
+from cliora_tpu_torch.training import dist_ckpt
 from cliora_tpu_torch.training import trainer as trainer_mod
 from cliora_tpu_torch.training.checkpoint import (
     export_torch_checkpoint,
@@ -2295,7 +2316,7 @@ def cli_path():
     process, as scripts/train_diora.sh -> scripts/train_cliora.sh ->
     scripts/test_diora.sh / test_cliora.sh run them, on a synthetic
     grounded corpus of CLI_TRAIN + CLI_TEST captions.  Returns the kernel
-    counters of each stage."""
+    counters of each stage and the CLIORA stages' epoch sentences/s."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
         corpus = os.path.join(work, "corpus")
@@ -2315,7 +2336,7 @@ def cli_path():
                 "--data_path", corpus + "/"]
         exp = {name: os.path.join(work, name) for name in (
             "diora", "cliora", "cliora_full", "parse_diora", "parse")}
-        launches = {}
+        launches, sents = {}, {}
 
         # DIORA pretraining (scripts/train_diora.sh), 2 epochs
         args = (DIORA_FLAGS + data + CLI_RUN_FLAGS
@@ -2349,6 +2370,7 @@ def cli_path():
                                          args + extra, arrays)
             rec = cli_train_record(rec, tr, records, path)
             launches[stage] = rec["launches"]
+            sents[stage] = [r["sents_per_s"] for r in records]
             want = 2 * (rec["warmup_steps"] + rec["graphs"])
             check(all(rec["launches"][k] == want for k in SR_KERNELS)
                   and rec["launches"]["inside_cky"] == 0,
@@ -2427,7 +2449,7 @@ def cli_path():
                   np.concatenate([obj] * (B // obj.shape[0]), 0))})
     emit({"phase": "cli_summary", "launches": launches,
           "wall_seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, sents
 
 
 def cli_rows(experiment_path):
@@ -2452,7 +2474,7 @@ REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-4, 2e-6
 REMAT_LR = 1e-5
 # unremated peaks that calibrate the auto-remat copy factor, (B, n)
 REMAT_CALIBRATION = ((128, 20), (64, 40), (128, 40))
-ARCH_STEPS = 10
+ARCH_STEPS = 5
 ARCH_REQUESTS = 5
 CLI_ARCHS_TRAIN, CLI_ARCHS_TEST = 1024, 128
 
@@ -3531,11 +3553,681 @@ def serve_path():
     return moved
 
 
+# -- phase dp: data-parallel training over torch.distributed ----------------
+
+# the two-rank run: B = 128 as 64 + 64, so the span x region kernels see
+# A = 64 local sentences against C = 128 gathered images
+DP_WORLD = 2
+DP_LOCAL = B // DP_WORLD
+DP_BATCHES = 3
+DP_TIMED = 10
+DP_SR_CALLS = {"vg": (DP_LOCAL, N, B, R, D, "float32"),
+               "contrastive": (DP_LOCAL, ncells(N), B, R, D, "bfloat16"),
+               "contrastive_f32": (DP_LOCAL, ncells(N), B, R, D, "float32")}
+# two ranks against one process at the tests' small width: the CPU tests'
+# tolerances (tests/test_torch_parallel.py), losses relative over three
+# steps, parameters absolute on the entries whose root-mean-square
+# gradient exceeds DP_MOVED_RMS.  At the bench width a rank's 64 rows and
+# the whole batch's 128 go through GEMMs of other shapes, whose rounding
+# the exponentiated span marginals amplify (the contrastive loss is
+# ~6.6e6 at this init), so there the first step is held at the full-width
+# f32 route tolerances (ROUTE_LOSS_RTOL, ROUTE_GRAD_COS)
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_ATOL = 1e-5
+DP_ZERO1_ATOL = 1e-6
+DP_MOVED_RMS = 1e-6
+DP_EVAL_BATCHES = 5
+DP_GLOO_TAGS = ("full_dropout0", "full_dropout01", "full_zero1",
+                "small_dropout0", "small_dropout01")
+NOT_DP = ("two ranks share one card and gloo moves every collective "
+          "through the host: not data-parallel performance")
+
+
+def dp_kernels():
+    """K2-K4 at the dp step's calls (A = 64 against C = 128) against their
+    plain versions, with the segment counts those shapes give."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for tag, (a, m, c, r, d, dtype) in DP_SR_CALLS.items():
+        tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        span = torch.randn(a, m, d, generator=gen, device=dev).to(tdt)
+        obj = torch.randn(c, r, d, generator=gen, device=dev)
+        g = torch.randn(a, c, m, generator=gen, device=dev)
+        rec = span_region_vs_plain(span, obj, g)
+        rec["dobj_segments"] = span_region.dobj_segments(
+            a * m, c, r, d, dtype == "bfloat16")
+        emit({"phase": "dp_kernel", "call": tag, "dtype": dtype,
+              "span": [a, m, d], "obj": [c, r, d], **rec})
+        check_span_region(rec, f"dp span_region {tag} {dtype}",
+                          dtype == "bfloat16")
+    torch.cuda.empty_cache()
+
+
+def dp_flat(cfg, tc):
+    """The bench model's weights from the seed, the image encoder moved off
+    its zero init, as a CPU flat dict: every process of the phase makes
+    the same ones."""
+    return perturbed(Trainer.build(cfg, tc, V, seed=SEED, device="cpu")
+                     .params, np.random.RandomState(SEED + 7))
+
+
+def dp_trainer(cfg, tc, flat, device, mesh=None):
+    return Trainer(cfg, tc, params_from_numpy(flat, device), device=device,
+                   mesh=mesh)
+
+
+def dp_global_batches(rs):
+    return [train_batch(rs, B, N, V, K_NEG, R, F) for _ in range(DP_BATCHES)]
+
+
+def dp_state(tr):
+    """Host copies of a trainer's parameters and Adam's state."""
+    opt = tr.opt_state()
+    return flatten(tr.params), opt
+
+
+def dp_same_state(a, b):
+    (fa, oa), (fb, ob) = a, b
+    return (all(np.array_equal(fa[k], fb[k]) for k in fa)
+            and oa["count"] == ob["count"]
+            and all(np.array_equal(oa[p][k], ob[p][k])
+                    for p in ("mu", "nu") for k in oa[p]))
+
+
+def dp_losses(metrics):
+    return [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def dp_run_graphed(tr, batches):
+    """The batches twice through ``Trainer.steps``: the warm-up steps,
+    the capture and its first replay, then a replay each."""
+    out = dp_losses(tr.steps(batches)) + dp_losses(tr.steps(batches))
+    torch.cuda.synchronize()
+    return out
+
+
+def dp_replay_ms(tr, batch):
+    t0 = time.perf_counter()
+    tr.steps([batch] * DP_TIMED)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / DP_TIMED
+
+
+def dp_graphed(dtype, mesh, batches, work):
+    """One rank's NCCL group against no group, ``Trainer.steps`` at the
+    bench configuration: equal bits over the batches (and under ZeRO-1),
+    the graphed step ms in turns, a profiled replay, the ``.opt.pkl`` of
+    ZeRO-1 against the replicated optimizer's, and an ``AsyncSaver`` save
+    followed at once by a replay, restored into a fresh trainer."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, tc = train_configs(dtype)
+    flat = dp_flat(cfg, tc)
+    out = {"dtype": dtype, "batch": B, "n": N}
+
+    def build(m, zero1=False):
+        t = dataclasses.replace(tc, zero1=zero1)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = dp_trainer(cfg, t, flat, dev, m)
+        losses = dp_run_graphed(tr, batches)
+        return tr, losses, torch.cuda.max_memory_allocated() - before
+
+    plain, plain_losses, out["no_group_peak_bytes"] = build(None)
+    plain_state = dp_state(plain)
+    zero_counts()
+    dp, dp_losses_, out["dp_peak_bytes"] = build(mesh)
+    out["launches"] = kernel_counts()
+    out["graph_keys"] = [list(map(str, k)) for k in dp._graphs]
+    out["dp_equals_no_group_bits"] = (dp_losses_ == plain_losses
+                                      and dp_same_state(dp_state(dp),
+                                                        plain_state))
+    z, z_losses, out["zero1_peak_bytes"] = build(mesh, zero1=True)
+    z_state = dp_state(z)
+    out["zero1_equals_no_group_bits"] = (z_losses == plain_losses
+                                         and dp_same_state(z_state,
+                                                           plain_state))
+    pkl = {}
+    for tag, state in (("zero1", z_state), ("replicated", plain_state)):
+        pkl[tag] = os.path.join(work, f"{dtype}.{tag}.opt.pkl")
+        save_opt_state(pkl[tag], state[1])
+    out["zero1_opt_pkl_equal_bits"] = equal_files(pkl["zero1"],
+                                                  pkl["replicated"])[0]
+    del z
+    free_card()
+    # graphed step ms in turns (no group, dp, dp, no group)
+    turns = [(name, dp_replay_ms(tr, batches[0])) for name, tr in
+             (("no_group", plain), ("dp", dp), ("dp", dp),
+              ("no_group", plain))]
+    out["step_ms"] = {name: [ms for n, ms in turns if n == name]
+                      for name in ("no_group", "dp")}
+    calls = {}
+    by_kernel = profile_kernels(lambda: dp.steps([batches[0]]), reps=3,
+                                calls=calls)
+    busy = sum(r["ms"] for r in by_kernel.values())
+    step_ms = statistics.mean(out["step_ms"]["dp"])
+    out["profile"] = {
+        "replayed_step_device_busy_ms": busy if by_kernel else
+        "not measured",
+        "idle_share": 1 - busy / step_ms if by_kernel else "not measured",
+        "graph_launches_per_step": calls.get("cudaGraphLaunch", 0),
+        "device_kernels_per_step": sum(r["count"]
+                                       for r in by_kernel.values()),
+        "launches_per_replayed_step_profiled": {
+            k: own_launches(by_kernel, k)
+            for k in SR_KERNELS + ("segment_reduce",)},
+        # the collectives' device work: NCCL kernels, and the copies a
+        # group of one makes in their place
+        "collective_kernels": {k: v for k, v in by_kernel.items()
+                               if re.search(r"nccl|memcpy|Memcpy", k)},
+    }
+    # an async save, then at once a replay that writes the parameters in
+    # place; the checkpoint restored into a fresh trainer steps on as the
+    # uninterrupted one does
+    path = os.path.join(work, f"{dtype}.dcp")
+    saver = dist_ckpt.AsyncSaver()
+    t0 = time.perf_counter()
+    saver.save(path, dp)
+    out["async_save_returned_ms"] = (time.perf_counter() - t0) * 1e3
+    after = dp_losses(dp.steps([batches[0]])) + dp_losses(
+        dp.steps(batches[1:]))
+    saver.close()
+    want = dp_state(dp)
+    fresh = dp_trainer(cfg, tc, flat, dev, mesh)
+    dist_ckpt.restore_state(path, fresh)
+    got = dp_losses(fresh.steps([batches[0]])) + dp_losses(
+        fresh.steps(batches[1:]))
+    out["async_save_restore_equal_bits"] = (got == after and dp_same_state(
+        dp_state(fresh), want))
+    out["total_loss"] = [m["total_loss"] for m in plain_losses]
+    del plain, dp, fresh
+    free_card()
+    out["wall_seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def dp_eval_batches(rs):
+    return [eval_batch(rs, B, N, V, K_NEG, R, F)
+            for _ in range(DP_EVAL_BATCHES)]
+
+
+def dp_diora(device):
+    cfg = ModelConfig(size=D, input_size=E)
+    tc = TrainConfig(k_neg=K_NEG, emb_trainable=True)
+    return cfg, tc, perturbed(Trainer.build(cfg, tc, V, seed=SEED,
+                                            device="cpu").params,
+                              np.random.RandomState(SEED + 9))
+
+
+def dp_eval(mesh):
+    """``run_eval`` of a DIORA model (K1) through the dp trainer against
+    the same model without a group."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, tc, flat = dp_diora(dev)
+    batches = BatchList(dp_eval_batches(np.random.RandomState(SEED + 10)))
+    zero_counts()
+    got = run_eval(dp_trainer(cfg, tc, flat, dev, mesh), batches)
+    launches = kernel_counts()
+    want = run_eval(dp_trainer(cfg, tc, flat, dev), batches)
+    return {"metrics": got, "equals_no_group": got == want,
+            "launches": launches}
+
+
+def dp_cli(work):
+    """The train CLI under ``torch.distributed.run`` (this process is its
+    one rank): train_cliora.sh's flags with ``--zero1 --ckpt_backend orbax
+    --attn_impl cuda``, 1 epoch then ``--resume auto`` to 2 against an
+    uninterrupted 2-epoch run, and ``run_eval`` of the final model against
+    the same model without a group."""
+    corpus = os.path.join(work, "corpus")
+    arrays = {m: tuple(np.load(os.path.join(work, f"{m}.{i}.npy"))
+                       for i in range(3)) for m in ("train", "test")}
+    data = ["--data_type", "flickr",
+            "--train_path", os.path.join(corpus, "flickr_train.json"),
+            "--validation_path", os.path.join(corpus, "flickr_test.json"),
+            "--data_path", corpus + "/"]
+    args = (CLIORA_FLAGS + data + CLI_RUN_FLAGS
+            + ["--attn_impl", "cuda", "--zero1", "--ckpt_backend", "orbax"])
+    stages = (("uninterrupted", "full", "2", []), ("first", "resumed", "1", []),
+              ("resume", "resumed", "2", ["--resume", "auto"]))
+    out, trainers, launches = {}, {}, {}
+    for stage, exp, epochs, extra in stages:
+        path = os.path.join(work, exp)
+        (tr, records), rec = run_cli(
+            stage, cli_train.main,
+            args + ["--max_epoch", epochs, "--experiment_path", path]
+            + extra, arrays)
+        launches[stage] = rec["launches"]
+        out[stage] = {
+            "epochs": [r["epoch"] for r in records],
+            "sents_per_s": [r["sents_per_s"] for r in records],
+            "wall_s": [r["wall_s"] for r in records],
+            "eval_wall_s": [r["eval_wall_s"] for r in records],
+            "metrics": [r["metrics"] for r in records],
+            "epoch_log": cli_log_lines(path, "EPOCH-END"),
+            "wall_seconds": rec["wall_seconds"],
+            "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+            "checkpoints": sorted(f for f in os.listdir(path)
+                                  if f.startswith("model.")),
+            "mesh": [tr.mesh.size, tr.mesh.backend],
+            "zero1": tr.zero1 is not None}
+        trainers[stage] = tr
+    out["resume_equals_uninterrupted_bits"] = dp_same_state(
+        dp_state(trainers["resume"]), dp_state(trainers["uninterrupted"]))
+    full = trainers["uninterrupted"]
+    options = cli_flags.parse_args(cli_flags.argument_parser(), args)
+    it = cli_common.get_validation_iterator(
+        options, cli_common.get_validation_dataset(options),
+        region_features=arrays["test"])
+    got = run_eval(full, it, seed=options.seed, use_obj=True)
+    plain = dp_trainer(full.cfg, dataclasses.replace(full.tc, zero1=False),
+                       flatten(full.params), full.device)
+    want = run_eval(plain, it, seed=options.seed, use_obj=True)
+    out["eval"] = {"dp": got, "no_group": want, "equal": got == want}
+    out["launches"] = launches
+    return out
+
+
+def dp_child_nccl(work):
+    """The rank of a one-rank NCCL world (torch.distributed.run's
+    environment): the graphed steps in bf16 and f32, the DIORA eval and
+    the train CLI."""
+    check(multihost.initialize_multihost(device="cuda"),
+          "torch.distributed.run's environment made no group")
+    mesh = make_mesh()
+    rec = {"backend": mesh.backend, "world": mesh.size,
+           "TORCH_NCCL_ASYNC_ERROR_HANDLING":
+               os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING"),
+           "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rs = np.random.RandomState(SEED + 8)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+               for b in dp_global_batches(rs)]
+    for dtype in ("bfloat16", "float32"):
+        rec[dtype] = dp_graphed(dtype, mesh, batches, work)
+    rec["eval"] = dp_eval(mesh)
+    rec["cli"] = dp_cli(work)
+    return rec
+
+
+def dp_small_configs(dropout, zero1=False):
+    """The CPU tests' dp configuration (tests/torch_dp.py): D=16, E=24,
+    V=50, 3 regions of 16 features, VG + contrastive, on the kernels."""
+    cfg = ModelConfig(size=16, input_size=24, use_obj=True, n_regions=3,
+                      obj_feat_size=16, attn_dropout=dropout)
+    tc = TrainConfig(lr=1e-3, k_neg=5, emb_trainable=True, vg_loss=True,
+                     use_contr=True, attn_impl="cuda", zero1=zero1)
+    return cfg, tc
+
+
+def dp_small_batches(rs):
+    return [train_batch(rs, 8, 6, 50, 5, 3, 16) for _ in range(DP_BATCHES)]
+
+
+def dp_gloo_cases():
+    """(tag, configs, flat, global batches) of the two-rank run: the bench
+    model at dropout 0 and 0.1 and under ZeRO-1, the tests' small model
+    at dropout 0 and 0.1."""
+    out = []
+    for tag, dropout, zero1 in (("full_dropout0", 0.0, False),
+                                ("full_dropout01", 0.1, False),
+                                ("full_zero1", 0.1, True)):
+        cfg, tc = train_configs("float32", attn_dropout=dropout)
+        tc = dataclasses.replace(tc, zero1=zero1)
+        out.append((tag, cfg, tc, dp_flat(cfg, tc),
+                    dp_global_batches(np.random.RandomState(SEED + 8))))
+    for tag, dropout in (("small_dropout0", 0.0), ("small_dropout01", 0.1)):
+        cfg, tc = dp_small_configs(dropout)
+        flat = perturbed(Trainer.build(cfg, tc, 50, seed=SEED,
+                                       device="cpu").params,
+                         np.random.RandomState(SEED + 11))
+        out.append((tag, cfg, tc, flat,
+                    dp_small_batches(np.random.RandomState(SEED + 12))))
+    return out
+
+
+def dp_grads(tr):
+    """The clipped gradient each trainable parameter holds after a
+    (replicated) step: the group's, as Adam took it."""
+    return {k: p.grad.detach().cpu().numpy() for k, p in tr._trainable()}
+
+
+def dp_child_gloo(work):
+    """One of two ranks on the one card over gloo, CUDA tensors, eager
+    ``Trainer.step`` in f32, each case on its half of every global batch;
+    a DCP save of the ZeRO-1 state, ``steps`` refused, and a DIORA
+    ``run_eval`` of two shares."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    mesh = make_mesh(DP_WORLD)
+    dev = torch.device("cuda", 0)
+    rec, arrays = {"rank": mesh.rank, "backend": mesh.backend}, {}
+    for tag, cfg, tc, flat, batches in dp_gloo_cases():
+        mine = [{k: torch.as_tensor(v).to(dev) for k, v in
+                 shard_batch(mesh, b).items()} for b in batches]
+        tr = dp_trainer(cfg, tc, flat, dev, mesh)
+        steps = []
+        for i, b in enumerate(mine):
+            zero_counts()
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in tr.step(b).items()}     # syncs
+            steps.append({"losses": m, "launches": kernel_counts(),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+            if i == 0 and tc.zero1 is False:
+                arrays.update({f"{tag}/grad/{k}": v
+                               for k, v in dp_grads(tr).items()})
+        rec[tag] = {"steps": steps}
+        if tag == "full_dropout0":      # held on its first step only
+            del tr
+            free_card()
+            continue
+        params, opt = dp_state(tr)
+        arrays.update({f"{tag}/param/{k}": v for k, v in params.items()})
+        arrays.update({f"{tag}/opt/{p}/{k}": v for p in ("mu", "nu")
+                       for k, v in opt[p].items()})
+        arrays[f"{tag}/opt/count"] = np.array(opt["count"])
+        if tc.zero1:
+            t0 = time.perf_counter()
+            dist_ckpt.save_state(os.path.join(work, "gloo_zero1.dcp"), tr)
+            rec["dcp_save_ms"] = (time.perf_counter() - t0) * 1e3
+            try:
+                tr.steps([mine[0]])
+                rec["steps_refused"] = None
+            except RuntimeError as err:
+                rec["steps_refused"] = str(err)
+        del tr
+        free_card()
+    cfg, tc, flat = dp_diora(dev)
+    zero_counts()
+    rec["eval"] = run_eval(dp_trainer(cfg, tc, flat, dev, mesh), BatchList(
+        dp_eval_batches(np.random.RandomState(SEED + 10))))
+    rec["eval_launches"] = kernel_counts()
+    np.savez(os.path.join(work, f"gloo.rank{mesh.rank}.npz"), **arrays)
+    return rec
+
+
+def dp_child(mode, work):
+    """A rank of phase ``dp``, started by ``torch.distributed.run``: runs
+    its part and writes ``<work>/<mode>.rank<R>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build(SOURCES)          # built by the parent: loads
+    rec = (dp_child_nccl if mode == "nccl" else dp_child_gloo)(work)
+    with open(os.path.join(work, f"{mode}.rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_launch(mode, nproc, work, timeout):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --dp-child mode work``, in a session of its own
+    that is killed if it outlives ``timeout``; returns each rank's
+    record and the wall seconds."""
+    log = os.path.join(work, f"{mode}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+           "--dp-child", mode, work]
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=ROOT, start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log) as f:
+            print(f.read()[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"dp {mode}: torch.distributed.run exited "
+          f"{proc.returncode}")
+    recs = []
+    for r in range(nproc):
+        with open(os.path.join(work, f"{mode}.rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, wall
+
+
+def dp_moved(opt):
+    return {k: np.sqrt(v / (1 - 0.999 ** DP_BATCHES)) > DP_MOVED_RMS
+            for k, v in opt["nu"].items()}
+
+
+def dp_max_diff(got, want, moved):
+    """The largest absolute difference over the ``moved`` entries (all of
+    a parameter without an entry there)."""
+    return max(float(np.abs(got[k][moved.get(k, True)]
+                            - want[k][moved.get(k, True)]).max(initial=0.0))
+               for k in want)
+
+
+# the one gradient leaf whose exact gradient is zero: a bias shared by
+# every image's regions shifts all of a text's VG logits equally, and the
+# softmax over images ignores it, so what it holds is rounding residue
+DP_ZERO_GRAD_LEAVES = ("img_encoder/fc_vis/b",)
+
+
+def dp_cosines(got, want):
+    """Per leaf, the cosine of two gradients (every leaf reported; those
+    of DP_ZERO_GRAD_LEAVES are left out of the minimum, having no
+    direction to hold)."""
+    cos = {}
+    for k, w in want.items():
+        g = got[k].astype(np.float64).ravel()
+        w = w.astype(np.float64).ravel()
+        cos[k] = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+    return cos, min(v for k, v in cos.items()
+                    if k not in DP_ZERO_GRAD_LEAVES)
+
+
+def dp_batch_rounding(cfg, tc, flat, batch):
+    """Where a rank's half of the batch and the whole batch part ways: the
+    inside scores of the first half's rows, computed at 64 rows and at
+    128, and the contrastive loss share they give."""
+    dev = torch.device("cuda")
+    tr = dp_trainer(cfg, tc, flat, dev)
+    tok, neg, obj, _ = tr._place_batch(batch)
+    with torch.no_grad():
+        full, _ = trainer_mod.forward_outputs(cfg, tc, tr.params, tok, obj,
+                                              train=False)
+        half, _ = trainer_mod.forward_outputs(cfg, tc, tr.params,
+                                              tok[:DP_LOCAL],
+                                              obj[:DP_LOCAL], train=False)
+    a = full.chart.inside_s[:DP_LOCAL]
+    b = half.chart.inside_s
+    return {"inside_s_equal_bits": bool(torch.equal(a, b)),
+            "inside_s_max_abs_diff": (a - b).abs().max().item(),
+            "inside_s_max_abs": a.abs().max().item()}
+
+
+def dp_gloo_reference(work, recs):
+    """The two gloo ranks against one process on the whole batches: the
+    tests' small model over three steps at the CPU tests' tolerances; the
+    bench model on its first step, its losses and clipped gradients at
+    the full-width f32 route tolerances (later steps reported); ZeRO-1
+    against replicated; the ranks' DCP save restored here at one rank;
+    the two-share ``run_eval`` against one process."""
+    dev = torch.device("cuda")
+    ranks = [dict(np.load(os.path.join(work, f"gloo.rank{r}.npz")))
+             for r in range(DP_WORLD)]
+    out = {"note": NOT_DP}
+
+    def part(rk, tag, kind):
+        prefix = f"{tag}/{kind}/"
+        return {k[len(prefix):]: v for k, v in rk.items()
+                if k.startswith(prefix)}
+
+    cases = dp_gloo_cases()
+    for tag, cfg, tc, flat, batches in cases:
+        if tc.zero1:
+            continue
+        tr = dp_trainer(cfg, tc, flat, dev)
+        steps, ms = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            steps.append({k: float(v) for k, v in tr.step(b).items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                grads = dp_grads(tr)
+        params, opt = dp_state(tr)
+        rel = [max(abs(r[tag]["steps"][i]["losses"][k] - s[k]) / abs(s[k])
+                   for r in recs for k in s) for i, s in enumerate(steps)]
+        res = {"one_process_losses": steps, "one_process_step_ms": ms,
+               "rank_step_ms": [[s["ms"] for s in r[tag]["steps"]]
+                                for r in recs],
+               "loss_max_rel_by_step": rel}
+        if tag.startswith("small"):
+            moved = dp_moved(opt)
+            res["param_max_abs_moved"] = max(dp_max_diff(
+                part(rk, tag, "param"), params, moved) for rk in ranks)
+            res["entries_left_out"] = int(sum((~m).sum()
+                                              for m in moved.values()))
+            check(max(rel) <= DP_LOSS_RTOL
+                  and res["param_max_abs_moved"] <= DP_PARAM_ATOL,
+                  f"dp gloo {tag}: two ranks against one process {res}")
+        else:
+            cos, least = dp_cosines(part(ranks[0], tag, "grad"), grads)
+            res.update({"first_step_grad_cosine": cos,
+                        "min_first_step_grad_cosine": least,
+                        "grad_leaves_left_out": list(DP_ZERO_GRAD_LEAVES),
+                        "batch_rounding": dp_batch_rounding(
+                            cfg, tc, flat, batches[0])})
+            check(rel[0] <= ROUTE_LOSS_RTOL["float32"]
+                  and res["min_first_step_grad_cosine"]
+                  >= ROUTE_GRAD_COS["float32"],
+                  f"dp gloo {tag}: the first step against one process "
+                  f"{rel[0]}, {res['min_first_step_grad_cosine']}")
+        out[tag] = res
+        del tr
+        free_card()
+    # ZeRO-1 against the replicated optimizer, both on the two ranks
+    out["full_zero1_param_max_abs_moved"] = max(dp_max_diff(
+        part(rk, "full_zero1", "param"), part(rk, "full_dropout01", "param"),
+        dp_moved({"nu": part(rk, "full_dropout01", "opt/nu")}))
+        for rk in ranks)
+    check(out["full_zero1_param_max_abs_moved"] <= DP_ZERO1_ATOL,
+          f"dp gloo: ZeRO-1 against replicated "
+          f"{out['full_zero1_param_max_abs_moved']}")
+    # the ZeRO-1 state saved by two ranks, restored here at one
+    rk = ranks[0]
+    tag, cfg, tc, flat, _ = cases[2]
+    for zero1 in (True, False):
+        tr = dp_trainer(cfg, dataclasses.replace(tc, zero1=zero1), flat, dev)
+        dist_ckpt.restore_state(os.path.join(work, "gloo_zero1.dcp"), tr)
+        params, opt = dp_state(tr)
+        equal = (all(np.array_equal(v, rk[f"{tag}/param/{k}"])
+                     for k, v in params.items())
+                 and opt["count"] == int(rk[f"{tag}/opt/count"])
+                 and all(np.array_equal(v, rk[f"{tag}/opt/{p}/{k}"])
+                         for p in ("mu", "nu") for k, v in opt[p].items()))
+        name = "zero1" if zero1 else "replicated"
+        out[f"dcp_world2_to_world1_{name}_equal_bits"] = equal
+        check(equal, f"dp gloo: the world-2 DCP state restored at world 1 "
+              f"({name}) differs")
+        del tr
+    cfg, tc, flat = dp_diora(dev)
+    want = run_eval(dp_trainer(cfg, tc, flat, dev), BatchList(
+        dp_eval_batches(np.random.RandomState(SEED + 10))))
+    out["eval_equal"] = all(r["eval"] == want for r in recs)
+    check(out["eval_equal"], f"dp gloo: two-share run_eval "
+          f"{[r['eval'] for r in recs]} against one process {want}")
+    for r in recs:
+        check(r["steps_refused"] and "NCCL" in r["steps_refused"],
+              "dp gloo: Trainer.steps under gloo did not raise")
+        for tag in DP_GLOO_TAGS:
+            for st in r[tag]["steps"]:
+                check(all(st["launches"][k] == 2 for k in SR_KERNELS),
+                      f"dp gloo rank {r['rank']} {tag}: K2-K4 launches "
+                      f"{st['launches']}, expected 2 each a step")
+        check(r["eval_launches"]["inside_cky"] > 0,
+              f"dp gloo rank {r['rank']}: the eval launched no K1")
+    free_card()
+    return out
+
+
+def dp_path(cli_sents):
+    """Phase ``dp``: K2-K4 at the dp shapes; a one-rank NCCL world under
+    ``torch.distributed.run`` (graphed steps, ZeRO-1, async checkpoints,
+    the eval and the train CLI); two gloo ranks on the one card against
+    one process.  Returns each stage's kernel counters."""
+    t_phase = time.perf_counter()
+    dp_kernels()
+    free_card()
+    with tempfile.TemporaryDirectory() as work:
+        corpus = os.path.join(work, "corpus")
+        arrays = write_synthetic_flickr(corpus, CLI_TRAIN, CLI_TEST)
+        for mode, parts in arrays.items():
+            for i, a in enumerate(parts):
+                np.save(os.path.join(work, f"{mode}.{i}.npy"), a)
+        (nccl,), nccl_wall = dp_launch("nccl", 1, work, 420)
+        for dtype in ("bfloat16", "float32"):
+            rec = nccl[dtype]
+            emit({"phase": "dp_graphed", "backend": nccl["backend"],
+                  "world": nccl["world"], "card": nvidia_smi_line(),
+                  "TORCH_NCCL_ASYNC_ERROR_HANDLING":
+                      nccl["TORCH_NCCL_ASYNC_ERROR_HANDLING"], **rec})
+            for key in ("dp_equals_no_group_bits",
+                        "zero1_equals_no_group_bits",
+                        "zero1_opt_pkl_equal_bits",
+                        "async_save_restore_equal_bits"):
+                check(rec[key], f"dp {dtype}: {key} is false")
+            check(all(rec["launches"][k] == 2 * (GRAPH_WARMUP_STEPS + 1)
+                      for k in SR_KERNELS),
+                  f"dp {dtype}: K2-K4 launches {rec['launches']}, expected "
+                  f"2 a warm-up step and 2 at the capture")
+            check(all(rec["profile"]["launches_per_replayed_step_profiled"]
+                      [k] == 2 for k in SR_KERNELS),
+                  f"dp {dtype}: K2-K4 in a replayed step "
+                  f"{rec['profile']['launches_per_replayed_step_profiled']}")
+            check(all(math.isfinite(x) for x in rec["total_loss"]),
+                  f"dp {dtype}: non-finite loss")
+        ev = nccl["eval"]
+        emit({"phase": "dp_eval", **ev})
+        check(ev["equals_no_group"] and ev["launches"]["inside_cky"] > 0,
+              f"dp eval: {ev}")
+        cli = nccl["cli"]
+        emit({"phase": "dp_cli", "card": nvidia_smi_line(),
+              "no_group_cli_sents_per_s": cli_sents, **cli})
+        check(cli["first"]["epochs"] == [0] and cli["resume"]["epochs"]
+              == [1] and cli["resume_equals_uninterrupted_bits"],
+              f"dp cli: resume {cli['resume']['epochs']}, equal bits "
+              f"{cli['resume_equals_uninterrupted_bits']}")
+        check(cli["eval"]["equal"], f"dp cli: eval {cli['eval']}")
+        check(all(f.endswith(".dcp") or f.startswith("model.best")
+                  for f in cli["uninterrupted"]["checkpoints"]),
+              f"dp cli: checkpoints {cli['uninterrupted']['checkpoints']}")
+        gloo, gloo_wall = dp_launch("gloo", DP_WORLD, work, 300)
+        ref = dp_gloo_reference(work, gloo)
+        emit({"phase": "dp_gloo_two_ranks", "card": nvidia_smi_line(),
+              "ranks": gloo, **ref})
+    launches = {"nccl_world1_bf16": nccl["bfloat16"]["launches"],
+                "nccl_world1_f32": nccl["float32"]["launches"],
+                "nccl_world1_eval": ev["launches"],
+                **{f"cli_{k}": v for k, v in cli["launches"].items()},
+                "gloo_two_ranks_rank0": {
+                    k: sum(st["launches"][k] for tag in DP_GLOO_TAGS
+                           for st in gloo[0][tag]["steps"])
+                    + gloo[0]["eval_launches"][k]
+                    for k in gloo[0]["eval_launches"]}}
+    emit({"phase": "dp_summary", "launches": launches,
+          "nccl_child_wall_seconds": nccl_wall,
+          "gloo_child_wall_seconds": gloo_wall,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(sys.argv[2], sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # the plain versions are the reference: full f32 matmuls, no TF32
@@ -3581,7 +4273,7 @@ def main():
     entries += train_path(rs)
     torch.cuda.empty_cache()
     free_card()
-    cli = cli_path()
+    cli, cli_sents = cli_path()
     free_card()
     archs = {"treelstm": treelstm_path(np.random.RandomState(SEED + 3))}
     free_card()
@@ -3592,7 +4284,11 @@ def main():
     cli_archs = cli_archs_path()
     free_card()
     cli["serve"] = serve_path()
+    free_card()
+    dp_counts = dp_path(cli_sents)
     for entry in entries:
+        entry["dp_launches"] = {stage: counts[entry["name"]]
+                                for stage, counts in dp_counts.items()}
         entry["cli_launches"] = {stage: counts[entry["name"]]
                                  for stage, counts in cli.items()}
         entry["arch_launches"] = {

@@ -23,7 +23,11 @@ Ported so far:
   ``analysis.trees`` decode and span F1, ``analysis.grounding``,
   ``analysis.eval.run_eval``;
 * parameter checkpoints -- ``training.checkpoint`` ``.npz`` files shared
-  with the JAX package, and the reference's ``.pt`` state dicts.
+  with the JAX package, and the reference's ``.pt`` state dicts;
+* data-parallel training across processes -- ``parallel.multihost``
+  (the ``torch.distributed`` group), ``parallel.mesh`` (the dp group and
+  the collectives the global batch's losses need), ``parallel.sharding``
+  (ZeRO-1) and ``training.dist_ckpt`` (sharded async checkpoints).
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

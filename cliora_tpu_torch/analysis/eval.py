@@ -1,7 +1,8 @@
 """Validation-loop evaluation: parse F1 + phrase grounding.
 
-The port's counterpart of cliora_tpu/analysis/eval.py, single process
-(reference: cliora/scripts/train.py:119-219 ``run_eval``).  Its ``ccra``
+The port's counterpart of cliora_tpu/analysis/eval.py (reference:
+cliora/scripts/train.py:119-219 ``run_eval``), in one process or
+spread over a trainer's data-parallel group.  Its ``ccra``
 is computed after the decode, with each row's predicted spans, as the
 JAX package's parse script does (cliora_tpu/scripts/parse.py:135-146);
 the JAX ``run_eval`` updates its grounding meter without them, so its
@@ -13,10 +14,11 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
+import torch.distributed as dist
 
 from cliora_tpu_torch.analysis.grounding import GroundingMeter, ground_phrases
 from cliora_tpu_torch.analysis.trees import F1Meter, decode_batch
+from cliora_tpu_torch.parallel.mesh import is_multiprocess
 
 
 def eval_batch_trees(bp: np.ndarray, length: int, padded_length=None):
@@ -33,7 +35,7 @@ def eval_batch_trees(bp: np.ndarray, length: int, padded_length=None):
 def run_eval(trainer, iterator, seed: int = 11,
              use_obj: bool = False) -> Dict[str, float]:
     """corpus_f1 / sent_f1 / grounding recall / CCRA over a validation
-    iterator, in one process.
+    iterator.
 
     ``iterator.get_iterator(random_seed=seed)`` yields batch maps with
     ``sentences``, ``length`` (the true length; the longest one of a
@@ -42,20 +44,29 @@ def run_eval(trainer, iterator, seed: int = 11,
     and, for grounding, ``VG_GT`` phrases, ``boxes`` and ``obj_feats``.
     Sentences of length <= 2 are skipped, per batch and per row of a
     ragged batch, matching the reference (scripts/train.py:153-154).
+
+    Under a trainer's dp mesh of more than one rank every rank sees the
+    whole (unchunked) validation iterator, parses every world-th
+    evaluable batch, and the raw counters are summed across the group
+    (cliora_tpu/analysis/eval.py:56-64,103-121); the per-sentence F1s
+    are gathered in batch order, so every rank returns the one-process
+    metrics exactly.  All ranks must call it together.
     """
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "run_eval across processes: the distributed counter reduction "
-            "is not ported yet; evaluate in one process")
+    mesh = getattr(trainer, "mesh", None)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     f1 = F1Meter()
     grounding = GroundingMeter()
+    sent_by_batch = {}
 
+    k = -1
     for batch_map in iterator.get_iterator(random_seed=seed):
         length = batch_map["length"]
         if length <= 2:
             continue
+        k += 1
+        if k % world != rank:
+            continue
+        n_sent = len(f1.sent)
         res, _ = trainer.parse(batch_map, compute_loss=False,
                                outside=use_obj)
         real = batch_map.get("real_size", batch_map["batch_size"])
@@ -89,10 +100,27 @@ def run_eval(trainer, iterator, seed: int = 11,
                         pred_spans)
             if pred_spans is not None and gt is not None:
                 f1.update(pred_spans, set(gt[bid][:-1]))
+        sent_by_batch[k] = f1.sent[n_sent:]
 
+    if is_multiprocess(mesh):
+        _reduce_counters(f1, grounding, sent_by_batch, mesh)
     return {
         "corpus_f1": f1.corpus_f1,
         "sent_f1": f1.sent_f1,
         "grounding_acc": grounding.recall,
         "ccra": grounding.ccra,
     }
+
+
+def _reduce_counters(f1, grounding, sent_by_batch, mesh):
+    """Sum the raw counters over the group into ``f1`` and ``grounding``
+    and put every rank's per-sentence F1s in batch order (one object
+    all-gather)."""
+    mine = (f1.tp, f1.fp, f1.fn, grounding.total, grounding.recalled,
+            grounding.ccr, sent_by_batch)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine, group=mesh.group)
+    f1.tp, f1.fp, f1.fn, grounding.total, grounding.recalled, \
+        grounding.ccr = (sum(x[i] for x in every) for i in range(6))
+    by_batch = {k: v for x in every for k, v in x[6].items()}
+    f1.sent = [s for k in sorted(by_batch) for s in by_batch[k]]

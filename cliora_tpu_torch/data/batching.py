@@ -363,7 +363,16 @@ class BatchIterator:
             batch_map[k] = [v[i] for i in index]
 
         if self.process_count > 1:
-            # per-host chunk along batch dim (reference rank chunking)
+            # per-host chunk along batch dim (reference rank chunking);
+            # the ranks' chunks must be equal, as the dp step gathers
+            # them (parallel/mesh.py shard_batch's contract)
+            rows = len(batch_map["sentences"])
+            if rows % self.process_count:
+                raise ValueError(
+                    f"batch of {rows} rows not divisible by "
+                    f"{self.process_count} processes: make the batch "
+                    f"size a multiple of the world size (--pad_batches "
+                    f"fills a partial batch)")
             for k, v in batch_map.items():
                 parts = np.array_split(
                     np.arange(len(v)), self.process_count)

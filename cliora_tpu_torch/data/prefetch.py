@@ -59,10 +59,9 @@ class _Uploader:
             ready.record(self.stream)
         return out, ready
 
-    @staticmethod
-    def take(batch_map, ready):
-        """Order the current stream after the batch's copies."""
-        current = torch.cuda.current_stream()
+    def take(self, batch_map, ready):
+        """Order the device's current stream after the batch's copies."""
+        current = torch.cuda.current_stream(self.device)
         current.wait_event(ready)
         for key in DEVICE_KEYS:
             value = batch_map.get(key)
@@ -74,8 +73,8 @@ class _Uploader:
 def device_prefetch(iterator: Iterator[dict], device,
                     lookahead: int = 2) -> Iterator[dict]:
     """Yield the batch maps of ``iterator`` with their device arrays
-    already uploaded to ``device``, ``lookahead`` batches ahead of the
-    consumer.  On a CPU device the batch maps pass through unchanged
+    already uploaded to ``device`` (a dp rank's own card),
+    ``lookahead`` batches ahead of the consumer.  On a CPU device the batch maps pass through unchanged
     (``Trainer._place_batch`` reads the numpy arrays directly)."""
     device = torch.device(device)
     if device.type != "cuda":

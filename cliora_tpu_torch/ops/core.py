@@ -7,7 +7,7 @@ as the JAX package, so weights carry across without transposes.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -154,13 +154,29 @@ def bilinear(mat, a, b, compute_dtype=torch.float32) -> torch.Tensor:
     return lowp_einsum("...md,...md->...m", am, b, compute_dtype)
 
 
-def dropout_keep(generator: Optional[torch.Generator], shape,
-                 dropout: float, device) -> torch.Tensor:
-    """The keep mask of attention dropout, drawn from ``generator``
-    (which must live on ``device``): True with probability
-    ``1 - dropout``."""
+class RankRows(NamedTuple):
+    """The dropout stream of one rank of a data-parallel group: each draw
+    is made at the shape of the group's whole batch (``size`` blocks of
+    the rank's rows, in rank order) and the rank keeps block ``rank``, so
+    that the ranks together drop what one process drops over the global
+    batch.  Every rank's ``generator`` must hold the same state."""
+    generator: torch.Generator
+    size: int
+    rank: int
+
+
+def dropout_keep(generator, shape, dropout: float, device) -> torch.Tensor:
+    """The keep mask of attention dropout, drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``, or a :class:`RankRows` around
+    one): True with probability ``1 - dropout``."""
     if generator is None:
         raise ValueError("attention dropout needs a torch.Generator")
+    if isinstance(generator, RankRows):
+        rows = shape[0]
+        full = torch.rand((rows * generator.size,) + tuple(shape[1:]),
+                          generator=generator.generator, device=device)
+        block = full[generator.rank * rows:(generator.rank + 1) * rows]
+        return block < 1.0 - dropout
     return torch.rand(shape, generator=generator, device=device) \
         < 1.0 - dropout
 

@@ -1,10 +1,12 @@
 """Shared CLI plumbing: options -> configs -> Trainer, dataset loading.
 
 The port's counterpart of cliora_tpu/scripts/common.py.  ``build_trainer``
-builds the port's ``Trainer`` on ``--device`` and covers a warm start
+builds the port's ``Trainer`` on ``--device`` (and the data-parallel
+mesh, when the process is one rank of a group) and covers a warm start
 from ``.npz``/``.pt`` (``--load_model_path``) and ``--resume`` (a
-checkpoint path or ``auto``): parameters, optimizer state, then the host
-step counter from the experiment json.
+checkpoint path, an ``--ckpt_backend orbax`` directory, or ``auto``):
+parameters, optimizer state, then the host step counter from the
+experiment json.
 (reference: cliora/scripts/train.py:31-45,222-254 + cliora/net/trainer.py
 ``build_net``)
 """
@@ -29,6 +31,7 @@ from cliora_tpu_torch.training.checkpoint import (
     load_opt_state,
     load_params,
 )
+from cliora_tpu_torch.training.dist_ckpt import is_ckpt_dir, restore_state
 from cliora_tpu_torch.training.trainer import TrainConfig, Trainer
 from cliora_tpu_torch.utils.checkpoint import load_experiment
 from cliora_tpu_torch.utils.observability import get_logger
@@ -79,15 +82,16 @@ def train_config_from_options(options) -> TrainConfig:
     )
 
 
-def build_trainer(options, embeddings) -> Trainer:
+def build_trainer(options, embeddings, mesh=None) -> Trainer:
     """A new trainer on ``options.device`` (``embeddings``: a pretrained
     (V, E) matrix, or an int vocab size for the trainable ``--emb none``
-    table), then the warm start or resume the options ask for."""
+    table; ``mesh``: the data-parallel group, parallel/mesh.py), then the
+    warm start or resume the options ask for.  Every rank calls it."""
     logger = get_logger()
     cfg = model_config_from_options(options, embeddings)
     tc = train_config_from_options(options)
     trainer = Trainer.build(cfg, tc, embeddings, seed=options.seed,
-                            device=options.device)
+                            device=options.device, mesh=mesh)
 
     if options.resume:
         if options.resume == "auto":
@@ -99,12 +103,17 @@ def build_trainer(options, embeddings) -> Trainer:
                 logger.info(f"# of params = {param_count(trainer.params)}")
                 return trainer
         logger.info(f"Resuming from: {options.resume}")
-        params, missing = load_params(options.resume, trainer.params)
-        if missing:
-            raise ValueError(f"{options.resume}: no {missing}")
-        opt_state = load_opt_state(options.resume.replace(".npz",
-                                                          ".opt.pkl"))
-        trainer.install_state(params, opt_state)
+        if is_ckpt_dir(options.resume):
+            # a collective restore, resharded to this run's layout
+            # (training/dist_ckpt.py)
+            restore_state(options.resume, trainer)
+        else:
+            params, missing = load_params(options.resume, trainer.params)
+            if missing:
+                raise ValueError(f"{options.resume}: no {missing}")
+            opt_state = load_opt_state(options.resume.replace(".npz",
+                                                              ".opt.pkl"))
+            trainer.install_state(params, opt_state)
         # exact resume: the host step counter (the dropout stream) from
         # the experiment json, after Adam's count came with its state
         rst = resume_state(options)
@@ -158,12 +167,16 @@ def resume_state(options):
 
 
 def _latest_checkpoint(experiment_path):
-    """Newest per-epoch ``.npz`` checkpoint for ``--resume auto``: rerun
-    the same command with the same --experiment_path and training
-    continues from the last completed epoch."""
+    """Newest per-epoch checkpoint (an ``.npz`` file or a ``.dcp``
+    directory) for ``--resume auto``: rerun the same command with the
+    same --experiment_path and training continues from the last
+    completed epoch."""
     best, best_epoch = None, -1
     for p in glob.glob(os.path.join(experiment_path, "model.epoch_*")):
-        m = re.match(r"model\.epoch_(\d+)\.npz$", os.path.basename(p))
+        m = re.match(r"model\.epoch_(\d+)\.(npz|dcp)$",
+                     os.path.basename(p))
+        if m and m.group(2) == "dcp" and not is_ckpt_dir(p):
+            continue            # a write that did not finish
         if m and int(m.group(1)) > best_epoch:
             best, best_epoch = p, int(m.group(1))
     return best

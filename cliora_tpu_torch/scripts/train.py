@@ -1,7 +1,6 @@
 """Training entry point.
 
-The port's counterpart of cliora_tpu/scripts/train.py, on one device.
-Usage mirrors the reference's shell scripts (reference:
+The port's counterpart of cliora_tpu/scripts/train.py.  Usage mirrors the reference's shell scripts (reference:
 cliora/scripts/train.py, train_diora.sh, train_cliora.sh), e.g.::
 
     python -m cliora_tpu_torch.scripts.train \\
@@ -16,6 +15,16 @@ It runs on the card unless ``--device cpu`` is given.  Batches are
 uploaded ahead of the step (data/prefetch.py); with ``--steps_per_call
 K`` consecutive same-shape batches go through one ``Trainer.steps``
 call, which on the card replays one captured CUDA graph per shape.
+
+Data parallelism: one process a card, started by ``python -m
+torch.distributed.run --nproc_per_node N -m
+cliora_tpu_torch.scripts.train ...`` or with ``--world_size N
+--master_addr A --master_port P --local_rank R`` in each process
+(parallel/multihost.py).  Each rank trains on its chunk of every global
+batch (``--batch_size`` is the global batch), evaluates its share of the
+validation batches, and takes part in ``--ckpt_backend orbax``'s
+sharded saves; the chief writes the ``.npz`` / ``.pt`` / ``.opt.pkl``
+files and the experiment json.
 """
 
 from __future__ import annotations
@@ -26,10 +35,18 @@ import random
 import re
 import time
 
+import shutil
+
 import torch
+import torch.distributed as dist
 
 from cliora_tpu_torch.analysis.eval import run_eval
 from cliora_tpu_torch.data.prefetch import device_prefetch
+from cliora_tpu_torch.parallel.mesh import make_mesh
+from cliora_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_chief,
+)
 from cliora_tpu_torch.scripts.common import (
     build_trainer,
     get_train_and_validation,
@@ -42,6 +59,7 @@ from cliora_tpu_torch.training.checkpoint import (
     save_opt_state,
     save_params,
 )
+from cliora_tpu_torch.training.dist_ckpt import AsyncSaver
 from cliora_tpu_torch.utils.checkpoint import save_experiment
 from cliora_tpu_torch.utils.flags import (
     argument_parser,
@@ -127,6 +145,13 @@ def _sync(trainer):
         torch.cuda.synchronize(trainer.device)
 
 
+def _barrier(trainer):
+    """Keep the ranks in step at an epoch's end, so that none runs ahead
+    of the chief's checkpoint into the next epoch's collectives."""
+    if trainer.mesh is not None:
+        dist.barrier(group=trainer.mesh.group)
+
+
 def run_train(options, train_iterator, trainer, validation_iterator):
     """The epoch loop: train, checkpoint, eval, keep-best.  Returns one
     record per epoch run: ``{"epoch", "step", "sents", "wall_s",
@@ -135,6 +160,10 @@ def run_train(options, train_iterator, trainer, validation_iterator):
     logger = get_logger()
     experiment_logger = ExperimentLogger()
     save_emb = options.emb == "none"
+    chief = is_chief()
+    # --ckpt_backend orbax: every rank writes its part of each epoch's
+    # DCP directory; the write finishes while the eval runs
+    saver = AsyncSaver() if options.ckpt_backend == "orbax" else None
 
     seeds = generate_seeds(options.max_epoch, options.seed)
     step = 0
@@ -209,18 +238,27 @@ def run_train(options, train_iterator, trainer, validation_iterator):
 
             base = os.path.join(options.experiment_path,
                                 f"model.epoch_{epoch}")
-            save_params(base + ".npz", trainer.params,
-                        save_embeddings=save_emb)
-            export_torch_checkpoint(base + ".pt", trainer.params,
-                                    save_embeddings=save_emb)
-            save_opt_state(base + ".opt.pkl", trainer.opt_state())
-            save_experiment(
-                os.path.join(options.experiment_path,
-                             f"experiment.epoch_{epoch}.json"), step,
-                epoch=epoch, host_step=trainer._host_step,
-                seed=options.seed)
-            _prune_checkpoints(options, epoch, logger)
+            if saver is not None:
+                saver.save(base + ".dcp", trainer)
+            else:
+                # on every rank: under --zero1 the gather of Adam's
+                # state is a collective
+                opt_state = trainer.opt_state()
+                if chief:
+                    save_params(base + ".npz", trainer.params,
+                                save_embeddings=save_emb)
+                    export_torch_checkpoint(base + ".pt", trainer.params,
+                                            save_embeddings=save_emb)
+                    save_opt_state(base + ".opt.pkl", opt_state)
+            if chief:
+                save_experiment(
+                    os.path.join(options.experiment_path,
+                                 f"experiment.epoch_{epoch}.json"), step,
+                    epoch=epoch, host_step=trainer._host_step,
+                    seed=options.seed)
+                _prune_checkpoints(options, epoch, logger)
 
+            # every rank evaluates its share (analysis/eval.py)
             eval_t0 = time.time()
             metrics = run_eval(trainer, validation_iterator,
                                seed=options.seed,
@@ -231,13 +269,14 @@ def run_train(options, train_iterator, trainer, validation_iterator):
                 best_f1, best_epoch = corpus_f1, epoch
             # refresh the snapshot with this epoch's eval so a resumed
             # run keeps the keep-best state too
-            save_experiment(
-                os.path.join(options.experiment_path,
-                             f"experiment.epoch_{epoch}.json"), step,
-                epoch=epoch, host_step=trainer._host_step,
-                seed=options.seed, best_f1=best_f1,
-                best_epoch=best_epoch)
-            if best_epoch == epoch:
+            if chief:
+                save_experiment(
+                    os.path.join(options.experiment_path,
+                                 f"experiment.epoch_{epoch}.json"), step,
+                    epoch=epoch, host_step=trainer._host_step,
+                    seed=options.seed, best_f1=best_f1,
+                    best_epoch=best_epoch)
+            if chief and best_epoch == epoch:
                 # keep-best checkpoint (the reference keeps only
                 # per-epoch files, cliora/scripts/train.py:105-107)
                 best = os.path.join(options.experiment_path, "model.best")
@@ -256,6 +295,7 @@ def run_train(options, train_iterator, trainer, validation_iterator):
                             "sents_per_s": epoch_sents / wall if wall else
                             None, "eval_wall_s": eval_wall,
                             "metrics": metrics})
+            _barrier(trainer)
 
             if options.max_step is not None and step >= options.max_step:
                 logger.info(f"Max-Step={options.max_step} Quitting.")
@@ -263,7 +303,9 @@ def run_train(options, train_iterator, trainer, validation_iterator):
     finally:
         if profiler is not None:
             _stop_profiler(profiler, trainer, options)
-        if best_epoch is not None:
+        if saver is not None:
+            saver.close()       # waits for the write in flight
+        if chief and best_epoch is not None:
             logger.info(f"best model: epoch={best_epoch} "
                         f"corpus_f1={best_f1:.4f} "
                         f"(model.best.npz / model.best.pt)")
@@ -272,9 +314,11 @@ def run_train(options, train_iterator, trainer, validation_iterator):
 
 def _prune_checkpoints(options, epoch, logger):
     """``--ckpt_keep N``: keep only the newest N per-epoch checkpoints
-    (the npz/pt/opt.pkl triplets).  ``model.best.*`` and the experiment
-    jsons are never pruned.  Default 0 keeps every epoch, like the
-    reference (cliora/scripts/train.py:105-107)."""
+    (the npz/pt/opt.pkl triplets and the ``.dcp`` directories).
+    ``model.best.*`` and the experiment jsons are never pruned.  An
+    ``AsyncSaver`` finishes a write before it starts the next, so every
+    epoch before this one is complete.  Default 0 keeps every epoch,
+    like the reference (cliora/scripts/train.py:105-107)."""
     keep = options.ckpt_keep
     if keep < 1:
         return
@@ -287,7 +331,7 @@ def _prune_checkpoints(options, epoch, logger):
     for e in sorted(by_epoch):
         if e <= epoch - keep:
             for p in by_epoch[e]:
-                os.remove(p)
+                (shutil.rmtree if os.path.isdir(p) else os.remove)(p)
             logger.info(
                 f"pruned epoch-{e} checkpoint (--ckpt_keep {keep})")
 
@@ -341,14 +385,28 @@ def run(options, region_features=None):
     embeddings = train_dataset["embeddings"]
 
     logger.info("Initializing model.")
-    trainer = build_trainer(options, embeddings)
+    # one rank a card: --n_devices must be the world size, and more than
+    # one device without a group raises naming the launch command
+    mesh = (make_mesh(options.n_devices)
+            if dist.is_initialized() or (options.n_devices or 1) > 1
+            else None)
+    trainer = build_trainer(options, embeddings, mesh=mesh)
     return trainer, run_train(options, train_iterator, trainer,
                               validation_iterator)
 
 
 def main(args=None, region_features=None):
+    """Parse the flags, join the process group the flags or the launcher's
+    environment describe (a no-op for one process), then :func:`run`."""
     options = parse_args(argument_parser(), args)
-    configure_experiment(options.experiment_path)
+    initialize_multihost(
+        (f"{options.master_addr}:{options.master_port}"
+         if options.world_size else None),
+        options.world_size, options.local_rank,
+        local_rank=options.local_rank, device=options.device)
+    configure_experiment(options.experiment_path,
+                         rank=(dist.get_rank() or None)
+                         if dist.is_initialized() else None)
     get_logger().info(stringify_flags(options))
     save_flags(options, options.experiment_path)
     return run(options, region_features)

@@ -5,6 +5,17 @@ cliora_tpu/training/losses.py).
 Functions of the forward outputs; the loss parameters live in the main
 parameter tree (``params['reconstruct']``).
 (reference: cliora/net/trainer.py:25-201)
+
+Under a data-parallel ``mesh`` (parallel/mesh.py) each rank holds its
+rows of the global batch, and every loss returns the rank's share of the
+global batch's loss: the shares sum to the loss one process computes
+over the whole batch, so the gradients summed over the ranks are its
+gradient.  The reconstruction mean divides by the global word count; the
+VG and contrastive scores run over every rank's images (the caller
+gathers them, ``gather_rows``), and the contrastive image-side hinge,
+a mean over every rank's texts, is summed into the image's owner
+(``scatter_sum_rows``).  With one rank the shares are the plain losses,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +24,11 @@ import torch
 
 from cliora_tpu_torch.chart.indices import INDEX
 from cliora_tpu_torch.models.diora import table_rows
+from cliora_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    gather_rows,
+    scatter_sum_rows,
+)
 
 MIN_VAL = 1e-8
 
@@ -56,7 +72,7 @@ def root_cell_index(n: int, lengths: torch.Tensor) -> torch.Tensor:
 
 def reconstruction_loss(recon_params, embed_table: torch.Tensor,
                         tokens: torch.Tensor, neg_samples: torch.Tensor,
-                        outside_h: torch.Tensor, lengths=None):
+                        outside_h: torch.Tensor, lengths=None, mesh=None):
     """Masked-word reconstruction with sampled-softmax CE.
 
     Each leaf's *outside* vector must prefer the true word over ``k``
@@ -71,6 +87,7 @@ def reconstruction_loss(recon_params, embed_table: torch.Tensor,
       outside_h: (B, ncells, D) outside chart; leaves are cells [0, L).
       lengths: (B,) true lengths for padded buckets; pad positions are
         excluded from the mean.
+      mesh: the dp group; the mean is then over the global batch.
     """
     B, L = tokens.shape
     mat = recon_params["mat"]
@@ -85,9 +102,13 @@ def reconstruction_loss(recon_params, embed_table: torch.Tensor,
     # cross-entropy with target index 0
     per_word = torch.logsumexp(score, dim=-1) - score[..., 0]    # (B, L)
     if lengths is None:
-        return torch.mean(per_word)
+        loss = torch.mean(per_word)
+        return loss if mesh is None else loss * (1.0 / mesh.size)
     mask = word_mask(lengths, L)
-    return torch.sum(per_word * mask) / torch.sum(mask)
+    count = torch.sum(mask)
+    if mesh is not None:
+        count = all_reduce_(count, mesh)        # the global word count
+    return torch.sum(per_word * mask) / count
 
 
 def _vg_logits(phrase_region_max: torch.Tensor, lengths):
@@ -102,16 +123,20 @@ def _vg_logits(phrase_region_max: torch.Tensor, lengths):
 
 
 def vg_loss_from_scores(phrase_region_max: torch.Tensor,
-                        alpha_vg: float = 1.0, lengths=None):
+                        alpha_vg: float = 1.0, lengths=None, mesh=None):
     """As :func:`vg_loss` but from pre-reduced (B, B, L) best-region
-    scores (see ops/span_region.py for the fused reduction)."""
+    scores (see ops/span_region.py for the fused reduction).  Under a
+    ``mesh``: (b, B, L), the rank's b texts against every image."""
     logits = _vg_logits(phrase_region_max, lengths)
     logZ = torch.logsumexp(logits, dim=1)
-    return alpha_vg * torch.mean(logZ - torch.diagonal(logits))
+    if mesh is None:
+        return alpha_vg * torch.mean(logZ - torch.diagonal(logits))
+    own = torch.diagonal(logits, offset=mesh.rank * logits.shape[0])
+    return alpha_vg * torch.mean(logZ - own) * (1.0 / mesh.size)
 
 
 def vg_loss(vg_atten_score: torch.Tensor, alpha_vg: float = 1.0,
-            lengths=None):
+            lengths=None, mesh=None):
     """Word-level visual-grounding InfoNCE across the batch.
 
     (reference: cliora/net/trainer.py:131-171; its "V1" variant)
@@ -121,24 +146,31 @@ def vg_loss(vg_atten_score: torch.Tensor, alpha_vg: float = 1.0,
         (sentence, image) pair in the batch.
       lengths: (B,) true lengths; pad words excluded from each text's
         mean-over-words logit.
+      mesh: the dp group; then (b, B, L, R), the rank's texts.
     """
     return vg_loss_from_scores(torch.amax(vg_atten_score, dim=-1),
-                               alpha_vg, lengths)
+                               alpha_vg, lengths, mesh)
 
 
 def _contrastive_from_cell_scores(ins, outs, scores, margin, alpha_contr,
-                                  lengths):
+                                  lengths, mesh=None):
     """Shared tail of the contrastive variants.
 
-    ``scores``: (B_t, B_i, NC) best-region score per (text, image, cell).
+    ``scores``: (B_t, B_i, NC) best-region score per (text, image, cell);
+    under a ``mesh`` the rank's texts against every image.
     """
     B, NC = ins.shape
     scores = scores.permute(2, 0, 1)                      # (NC, B_t, B_i)
-    diag = torch.diagonal(scores, dim1=-2, dim2=-1)       # (NC, B)
+    first = 0 if mesh is None else mesh.rank * B     # the rank's 1st image
+    diag = torch.diagonal(scores, offset=first, dim1=-2, dim2=-1)  # (NC, B)
     d1 = diag[:, :, None]                 # own-image score per text
-    d2 = diag[:, None, :]                 # own-text score per image
+    if mesh is None:
+        d2 = diag[:, None, :]             # own-text score per image
+    else:
+        d2 = gather_rows(diag.T, mesh).T[:, None, :]
 
-    eye = torch.eye(B, dtype=torch.bool, device=ins.device)[None]
+    eye = (torch.arange(B, device=ins.device)[:, None] + first
+           == torch.arange(scores.shape[2], device=ins.device))[None]
     drop_txt = drop_img = eye
     mask = None
     n = int(round(((8 * NC + 1) ** 0.5 - 1) / 2))
@@ -156,13 +188,20 @@ def _contrastive_from_cell_scores(ins, outs, scores, margin, alpha_contr,
     loss_img = torch.clamp(margin + scores - d2, min=MIN_VAL)
     loss_txt = torch.where(drop_txt, zero, loss_txt).mean(dim=2)  # (NC, B_t)
     loss_img = torch.where(drop_img, zero, loss_img).mean(dim=1)  # (NC, B_i)
+    if mesh is not None:
+        # each rank's texts add their share of the image-side mean; the
+        # image's owner keeps the sum
+        loss_img = scatter_sum_rows((loss_img * (1.0 / mesh.size)).T,
+                                    mesh).T
     vl_loss = (loss_txt + loss_img).T                     # (B, NC)
+    share = 1.0 if mesh is None else 1.0 / mesh.size
 
     if lengths is None:
         span_margs = torch.exp(ins + outs - ins[:, -1:])  # (B, NC)
         loss_mat = span_margs * vl_loss
-        return alpha_contr * torch.mean(
+        loss = alpha_contr * torch.mean(
             torch.sum(loss_mat[:, : NC // 2], dim=-1))
+        return loss if mesh is None else loss * share
 
     # padded buckets: marginals renormalize against the true root, and
     # the half-chart slice becomes a per-example cell mask.  The exponent
@@ -170,22 +209,24 @@ def _contrastive_from_cell_scores(ins, outs, scores, margin, alpha_contr,
     root_s = torch.gather(ins, 1, root_cell_index(n, lengths)[:, None])
     span_margs = torch.exp(torch.where(mask, ins + outs - root_s,
                                        zero)) * mask
-    return alpha_contr * torch.mean(torch.sum(span_margs * vl_loss, dim=-1))
+    loss = alpha_contr * torch.mean(torch.sum(span_margs * vl_loss, dim=-1))
+    return loss if mesh is None else loss * share
 
 
 def contrastive_loss_from_scores(inside_s, outside_s, scores,
                                  margin: float = 0.2,
-                                 alpha_contr: float = 1.0, lengths=None):
+                                 alpha_contr: float = 1.0, lengths=None,
+                                 mesh=None):
     """As :func:`contrastive_loss` but from pre-reduced (B, B, ncells)
     best-region scores (see ops/span_region.py)."""
     return _contrastive_from_cell_scores(
         inside_s[..., 0], outside_s[..., 0], scores, margin, alpha_contr,
-        lengths)
+        lengths, mesh)
 
 
 def contrastive_loss(inside_s, outside_s, all_atten_score,
                      margin: float = 0.2, alpha_contr: float = 1.0,
-                     lengths=None):
+                     lengths=None, mesh=None):
     """Span-level contrastive grounding, weighted by span marginals.
 
     Hinge on best-region scores vs. the matched (diagonal) pair in both
@@ -201,7 +242,8 @@ def contrastive_loss(inside_s, outside_s, all_atten_score,
       all_atten_score: (B_text, B_img, ncells, R).
       lengths: (B,) true lengths for padded buckets (see
         :func:`contrastive_cell_mask`).
+      mesh: the dp group; then (b, B, ncells, R), the rank's texts.
     """
     return contrastive_loss_from_scores(
         inside_s, outside_s, torch.amax(all_atten_score, dim=-1), margin,
-        alpha_contr, lengths)
+        alpha_contr, lengths, mesh)

@@ -19,6 +19,14 @@ chart-free ``word`` baseline runs embed -> image encoder -> word x
 region scores -> VG loss (:func:`word_grounding_losses`).  Parameters stay f32 whatever ``compute_dtype`` says.  Frozen
 parameters get no gradient and no Adam state, so the clip norm is taken
 over the trainable ones (reference: cliora/net/trainer.py:450-455).
+
+With a data-parallel ``mesh`` (parallel/mesh.py) each rank steps on its
+rows of the global batch: the losses are its shares of the global
+batch's losses (training/losses.py), one all-reduce of the flat
+gradient comes between backward and the clip, and the metrics are the
+global losses.  ``TrainConfig.zero1`` shards Adam's state over the group
+(parallel/sharding.py).  Under ``Trainer.steps`` on the card the
+collectives run inside the captured graph (NCCL).
 """
 
 from __future__ import annotations
@@ -41,7 +49,17 @@ from cliora_tpu_torch.models.diora import (
 from cliora_tpu_torch.models.params import init_params, to_device
 from cliora_tpu_torch.models.word_grounding import word_grounding_forward
 from cliora_tpu_torch.ops import inside_cky
+from cliora_tpu_torch.ops.core import RankRows
 from cliora_tpu_torch.ops.span_region import span_region_max
+from cliora_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_,
+    all_reduce_flat,
+    dp_size,
+    gather_rows,
+    replicate_tree,
+)
+from cliora_tpu_torch.parallel.sharding import Zero1
 from cliora_tpu_torch.training.losses import (
     contrastive_loss,
     contrastive_loss_from_scores,
@@ -80,8 +98,12 @@ class TrainConfig:
     # examples of the batch) see microbatch-sized batches, so this equals
     # `accum_steps` small-batch gradients under one averaged update, not
     # one big-batch step (cliora_tpu/training/trainer.py:64-73)
+    # Under a dp mesh microbatch i is rows [i*B/A, (i+1)*B/A) of the
+    # GLOBAL batch, as in the JAX dp step (its accumulation scan slices
+    # the dp-sharded global batch), each rank taking its block of them
     accum_steps: int = 1
-    # ZeRO-1 comes with the parallelism slice of the port
+    # ZeRO-1: Adam's state and update sharded over the dp group
+    # (parallel/sharding.py); the parameters stay replicated
     zero1: bool = False
 
     def __post_init__(self):
@@ -92,10 +114,6 @@ class TrainConfig:
                              f"of {ATTN_IMPLS}")
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps={self.accum_steps}")
-        if self.zero1:
-            raise NotImplementedError(
-                "zero1: sharded optimizer state comes with the parallelism "
-                "slice of the port")
 
 
 def trainable_mask(tc: TrainConfig, params) -> Any:
@@ -179,12 +197,14 @@ def forward_outputs(cfg: ModelConfig, tc: TrainConfig, params,
                     tokens: torch.Tensor, obj_feats=None,
                     generator: Optional[torch.Generator] = None,
                     train: bool = True, with_cky: bool = False,
-                    outside=None, lengths=None):
+                    outside=None, lengths=None, mesh=None):
     """Embed -> image-encode -> diora forward (reference: Net.forward,
     cliora/net/trainer.py:272-304).
 
     Returns ``(out, aux)``; aux carries the embedding and region vectors
-    the fused-score losses need.
+    the fused-score losses need.  Under a dp ``mesh`` the batch x batch
+    scores are left to :func:`losses_from`, which scores the rank's
+    texts against every rank's images.
     """
     x_span, x_word = embed_forward(params["embed"], tokens,
                                    trainable=tc.emb_trainable)
@@ -197,34 +217,51 @@ def forward_outputs(cfg: ModelConfig, tc: TrainConfig, params,
         cfg, params, x_span, x_word, obj_span=obj_span, obj_word=obj_word,
         generator=generator, train=train, with_cky=with_cky,
         outside=outside, with_all_atten=need_all_atten,
-        materialize_atten=(tc.attn_impl == "einsum"), lengths=lengths)
+        materialize_atten=(tc.attn_impl == "einsum" and mesh is None),
+        lengths=lengths)
     aux = {"x_word": x_word, "obj_span": obj_span, "obj_word": obj_word}
     return out, aux
 
 
+def _images(aux, key, mesh):
+    """The region embeddings the batch x batch scores run over: the
+    batch's own, or under a dp ``mesh`` every rank's (gathered here,
+    just before their one use, so that their gradients reach the rank's
+    embeddings in the order the one-process step adds them)."""
+    return aux[key] if mesh is None else gather_rows(aux[key], mesh)
+
+
 def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
-                neg_samples, out, aux=None,
-                lengths=None) -> Dict[str, torch.Tensor]:
-    """All enabled losses from forward outputs.
+                neg_samples, out, aux=None, lengths=None,
+                mesh=None) -> Dict[str, torch.Tensor]:
+    """All enabled losses from forward outputs; under a dp ``mesh`` the
+    rank's shares of the global batch's losses (training/losses.py).
 
     (reference: Net.compute_loss, cliora/net/trainer.py:243-270)
     """
     metrics: Dict[str, torch.Tensor] = {}
     recon = reconstruction_loss(
         params["reconstruct"], params["embed"]["embeddings"], tokens,
-        neg_samples, out.chart.outside_h, lengths=lengths)
+        neg_samples, out.chart.outside_h, lengths=lengths, mesh=mesh)
     metrics["reconstruction_softmax_loss"] = recon
     total = recon
 
     # fused reductions replace the materialized tensors only when the
-    # forward skipped them (training with attn_impl != 'einsum'); eval
-    # keeps the reference's eval-time score mixing (cliora.py:459-464)
+    # forward skipped them (training with attn_impl != 'einsum', or any
+    # dp step); eval keeps the reference's eval-time score mixing
+    # (cliora.py:459-464)
     if tc.vg_loss and cfg.use_obj:
         if out.vg_atten_score is None:
-            prm = span_region_max(aux["x_word"], aux["obj_word"],
-                                  tc.attn_impl)
-            vgl = vg_loss_from_scores(prm, alpha_vg=tc.alpha_vg,
-                                      lengths=lengths)
+            obj_word = _images(aux, "obj_word", mesh)
+            if tc.attn_impl == "einsum":
+                # (cliora.py:459-461), the materialized route of a dp step
+                vgl = vg_loss(
+                    torch.einsum("ald,crd->aclr", aux["x_word"], obj_word),
+                    alpha_vg=tc.alpha_vg, lengths=lengths, mesh=mesh)
+            else:
+                prm = span_region_max(aux["x_word"], obj_word, tc.attn_impl)
+                vgl = vg_loss_from_scores(prm, alpha_vg=tc.alpha_vg,
+                                          lengths=lengths, mesh=mesh)
         else:
             vgl = vg_loss(out.vg_atten_score, alpha_vg=tc.alpha_vg,
                           lengths=lengths)
@@ -233,11 +270,21 @@ def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
     if tc.use_contr and cfg.use_obj:
         if out.all_atten_score is None:
             span_vec = out.chart.inside_h + out.chart.outside_h
-            scores = span_region_max(span_vec, aux["obj_span"], tc.attn_impl)
-            ctr = contrastive_loss_from_scores(
-                out.chart.inside_s, out.chart.outside_s, scores,
-                margin=tc.vl_margin, alpha_contr=tc.alpha_contr,
-                lengths=lengths)
+            obj_span = _images(aux, "obj_span", mesh)
+            if tc.attn_impl == "einsum":
+                # (cliora.py:457), the materialized route of a dp step
+                ctr = contrastive_loss(
+                    out.chart.inside_s, out.chart.outside_s,
+                    torch.einsum("and,crd->acnr", span_vec.float(),
+                                 obj_span),
+                    margin=tc.vl_margin, alpha_contr=tc.alpha_contr,
+                    lengths=lengths, mesh=mesh)
+            else:
+                scores = span_region_max(span_vec, obj_span, tc.attn_impl)
+                ctr = contrastive_loss_from_scores(
+                    out.chart.inside_s, out.chart.outside_s, scores,
+                    margin=tc.vl_margin, alpha_contr=tc.alpha_contr,
+                    lengths=lengths, mesh=mesh)
         else:
             ctr = contrastive_loss(
                 out.chart.inside_s, out.chart.outside_s, out.all_atten_score,
@@ -251,15 +298,22 @@ def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
 
 
 def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
-                          tokens, obj_feats, lengths=None):
+                          tokens, obj_feats, lengths=None, mesh=None):
     """The chart-free ``word`` baseline's forward and its one loss, the VG
-    InfoNCE over the word x region scores.  Returns ``(out, metrics)``.
+    InfoNCE over the word x region scores.  Returns ``(out, metrics)``;
+    under a dp ``mesh`` (training) ``out`` is None and the loss is the
+    rank's share, over every rank's images.
     (cliora_tpu/training/trainer.py:196-211; reference:
     cliora/net/vg.py:477-482)
     """
     _, x_word = embed_forward(params["embed"], tokens,
                               trainable=tc.emb_trainable)
     _, obj_word = image_encoder_forward(params["img_encoder"], obj_feats)
+    if mesh is not None:
+        vg = torch.einsum("ald,crd->aclr", x_word,
+                          gather_rows(obj_word, mesh))
+        vgl = vg_loss(vg, alpha_vg=tc.alpha_vg, lengths=lengths, mesh=mesh)
+        return None, {"vg_loss": vgl, "total_loss": vgl}
     wg = word_grounding_forward(x_word, obj_word)
     vgl = vg_loss(wg.vg_atten_score, alpha_vg=tc.alpha_vg, lengths=lengths)
     return wg, {"vg_loss": vgl, "total_loss": vgl}
@@ -268,17 +322,20 @@ def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
 def compute_losses(cfg: ModelConfig, tc: TrainConfig, params, tokens,
                    neg_samples, obj_feats=None,
                    generator: Optional[torch.Generator] = None,
-                   train: bool = True, lengths=None):
-    """Forward + all enabled losses; returns ``(total, metrics)``."""
+                   train: bool = True, lengths=None, mesh=None):
+    """Forward + all enabled losses; returns ``(total, metrics)``.  Under
+    a dp ``mesh`` (training only) the losses are the rank's shares of the
+    global batch's and ``generator`` is the rank's :class:`RankRows`."""
     if cfg.arch == "word":
         _, metrics = word_grounding_losses(cfg, tc, params, tokens,
-                                           obj_feats, lengths=lengths)
+                                           obj_feats, lengths=lengths,
+                                           mesh=mesh)
         return metrics["total_loss"], metrics
     out, aux = forward_outputs(cfg, tc, params, tokens, obj_feats=obj_feats,
                                generator=generator, train=train,
-                               lengths=lengths)
+                               lengths=lengths, mesh=mesh)
     metrics = losses_from(cfg, tc, params, tokens, neg_samples, out, aux,
-                          lengths=lengths)
+                          lengths=lengths, mesh=mesh)
     return metrics["total_loss"], metrics
 
 
@@ -287,7 +344,18 @@ def _default_device() -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU unless the caller "
             "asks for the CPU (device='cpu')")
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _resolve_device(device) -> torch.device:
+    """``device``, with a bare ``"cuda"`` made the current card (a dp
+    rank's, parallel/multihost.py sets it), and ``None`` the same."""
+    if device is None:
+        return _default_device()
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return _default_device()
+    return device
 
 
 # seed of the dropout stream; step k draws from a generator seeded with
@@ -369,18 +437,26 @@ class Trainer:
     """
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, params,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.tc = tc
-        self.device = (_default_device() if device is None
-                       else torch.device(device))
+        self.mesh = mesh
+        self.device = _resolve_device(device)
         self.params = to_device(params, self.device)
         self.mask = trainable_mask(tc, self.params)
         for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
             p.requires_grad_(m)
-        self.optimizer = make_optimizer(
-            tc, self.params, self.mask,
-            capturable=self.device.type == "cuda")
+        # every rank starts from rank 0's values
+        # (cliora_tpu/parallel/mesh.py replicate_tree)
+        replicate_tree(mesh, tree_leaves(self.params))
+        capturable = self.device.type == "cuda"
+        # ZeRO-1 (parallel/sharding.py) owns the optimizer of the rank's
+        # slice of the flat trainable parameters
+        self.zero1 = (Zero1(self.trainable_params(), tc, mesh, capturable)
+                      if tc.zero1 else None)
+        self.optimizer = (self.zero1.optimizer if self.zero1 is not None
+                          else make_optimizer(tc, self.params, self.mask,
+                                              capturable=capturable))
         # host-side step counter for the dropout stream: reading a device
         # counter would sync every step
         self._host_step = 0
@@ -395,16 +471,18 @@ class Trainer:
 
     @classmethod
     def build(cls, cfg: ModelConfig, tc: TrainConfig, embeddings,
-              seed: int = 0, device=None) -> "Trainer":
+              seed: int = 0, device=None, mesh=None) -> "Trainer":
         """New model with N(0, 1) weights drawn from ``seed``.
 
         (reference: cliora/net/trainer.py:504-582 ``build_net``)
-        ``device=None`` means the CUDA device, and raises without one.
+        ``device=None`` means the current CUDA device, and raises without
+        one.  ``mesh``: the data-parallel group (parallel/mesh.py); every
+        rank passes its own rows of each global batch.
         """
-        device = _default_device() if device is None else torch.device(device)
+        device = _resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         return cls(cfg, tc, init_params(gen, cfg, embeddings, device),
-                   device=device)
+                   device=device, mesh=mesh)
 
     def _place_batch(self, batch_map):
         """The batch's arrays as tensors on this trainer's device: numpy
@@ -470,45 +548,85 @@ class Trainer:
         the batch is cut into A microbatches whose gradients accumulate
         from zero and, with the metrics, are divided by A before the one
         clip and update (cliora_tpu/training/trainer.py:356-411); each
-        microbatch draws the next stretch of the step's dropout stream."""
+        microbatch draws the next stretch of the step's dropout stream.
+
+        Under a dp mesh the losses are the rank's shares, the dropout
+        masks the rank's rows of the global batch's (``RankRows``), the
+        metrics are summed over the group, and the flat gradient is
+        all-reduced (or, under ZeRO-1, reduce-scattered) before the
+        clip."""
+        mesh = self.mesh
         A = self.tc.accum_steps
-        B = tokens.shape[0]
-        if B % A:
-            raise ValueError(f"batch {B} not divisible by accum_steps {A}")
-        b = B // A
-        trainable = self.optimizer.param_groups[0]["params"]
-        self.optimizer.zero_grad(set_to_none=True)
+        trainable = self.trainable_params()
+        if mesh is not None:
+            generator = RankRows(generator, mesh.size, mesh.rank)
+        for p in trainable:
+            p.grad = None
         metrics = None
-        for i in range(A):
-            part = slice(i * b, (i + 1) * b)
+        for tok, ob, lens in self._microbatches(tokens, obj, lengths):
             total, m = compute_losses(
-                self.cfg, self.tc, self.params, tokens[part], neg,
-                obj_feats=None if obj is None else obj[part],
-                generator=generator, train=True,
-                lengths=None if lengths is None else lengths[part])
+                self.cfg, self.tc, self.params, tok, neg, obj_feats=ob,
+                generator=generator, train=True, lengths=lens, mesh=mesh)
             total.backward()
             m = {k: v.detach() for k, v in m.items()}
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in m}
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in trainable]
+        if mesh is not None:
+            # the global losses: one all-reduce of every metric
+            vals = all_reduce_(torch.stack(list(metrics.values())), mesh)
+            metrics = dict(zip(metrics, vals.unbind()))
+        if A > 1:
+            metrics = {k: v / A for k, v in metrics.items()}
+        if self.zero1 is not None:
+            self.zero1.step(grads, A, self.tc.grad_clip)
+            return metrics
+        if mesh is not None:
+            grads = all_reduce_flat(grads, mesh)
         if A > 1:
             grads = [g / A for g in grads]
-            metrics = {k: v / A for k, v in metrics.items()}
         clipped, _ = clip_by_global_norm(grads, self.tc.grad_clip)
         for p, g in zip(trainable, clipped):
             p.grad = g
         self.optimizer.step()
         return metrics
 
+    def _microbatches(self, tokens, obj, lengths):
+        """``(tokens, obj, lengths)`` of each of the ``accum_steps``
+        microbatches.  Under a dp mesh with A > 1 microbatch i is rows
+        ``[i*B/A, (i+1)*B/A)`` of the global batch (B rows over the
+        group), as the JAX dp step slices it, and the rank takes its
+        block of those rows: the rows are gathered from the group first
+        (no gradient flows into the inputs)."""
+        A = self.tc.accum_steps
+        size, rank = 1, 0
+        if self.mesh is not None and A > 1:
+            size, rank = self.mesh.size, self.mesh.rank
+            tokens, obj, lengths = (
+                None if x is None else all_gather_rows(x, self.mesh)
+                for x in (tokens, obj, lengths))
+        B = tokens.shape[0]
+        if B % (A * size):
+            raise ValueError(f"batch {B} not divisible by accum_steps {A}"
+                             + (f" x {size} ranks" if size > 1 else ""))
+        m = B // (A * size)
+        out = []
+        for i in range(A):
+            part = slice(i * B // A + rank * m, i * B // A + (rank + 1) * m)
+            out.append((tokens[part], None if obj is None else obj[part],
+                        None if lengths is None else lengths[part]))
+        return out
+
     def _graph_key(self, batch) -> tuple:
         """The shapes a captured step is specialised to: B, L, k_neg, R,
-        F (None without regions), ``lengths`` given or not, and
-        ``accum_steps``."""
+        F (None without regions), ``lengths`` given or not,
+        ``accum_steps``, the dp group's size and ``zero1``."""
         tokens, neg, obj, lengths = batch
         return (*tokens.shape, neg.shape[0],
                 *((None, None) if obj is None else obj.shape[1:]),
-                lengths is not None, self.tc.accum_steps)
+                lengths is not None, self.tc.accum_steps,
+                dp_size(self.mesh), self.tc.zero1)
 
     def steps(self, batch_maps) -> List[Dict[str, torch.Tensor]]:
         """``len(batch_maps)`` train steps on batches of one shape, which
@@ -522,11 +640,19 @@ class Trainer:
         seed.  The first ``GRAPH_WARMUP_STEPS`` batches of a new shape run
         eagerly on a side stream before the capture.  A capture that fails
         raises; no eager step runs in its place.  On the CPU the steps run
-        eagerly.  (reference: cliora_tpu/training/trainer.py:670-707
-        ``steps``, :425-448 ``multi_step``)
+        eagerly.  Under a dp mesh the collectives are captured too, which
+        takes NCCL: a CUDA trainer in a gloo group raises here (its eager
+        ``step`` works).  (reference: cliora_tpu/training/trainer.py:
+        670-707 ``steps``, :425-448 ``multi_step``)
         """
         if not batch_maps:
             raise ValueError("steps needs at least one batch")
+        if (self.device.type == "cuda" and self.mesh is not None
+                and self.mesh.backend != "nccl"):
+            raise RuntimeError(
+                f"Trainer.steps on the card captures the dp collectives in "
+                f"a CUDA graph, which takes NCCL; this group runs "
+                f"{self.mesh.backend!r}: use Trainer.step")
         placed = [self._place_batch(bm) for bm in batch_maps]
         keys = {self._graph_key(b) for b in placed}
         if len(keys) != 1:
@@ -586,6 +712,10 @@ class Trainer:
                                           tree_leaves(self.params),
                                           tree_leaves(self.mask)) if m]
 
+    def trainable_params(self) -> List[torch.Tensor]:
+        """The trainable parameters, in :meth:`_trainable`'s order."""
+        return [p for _, p in self._trainable()]
+
     def set_step(self, n: int):
         """Restore the host step counter, which keys the dropout stream
         (:meth:`dropout_generator`), for exact resume
@@ -598,11 +728,20 @@ class Trainer:
         """Adam's state on the host: ``{"count": int, "mu": {path: array},
         "nu": {path: array}}`` over the trainable parameters, the form
         ``checkpoint.save_opt_state`` writes, copied to the host.  Syncs
-        with the device."""
+        with the device.  Under ZeRO-1 every rank must call it: it
+        gathers the shards (cliora_tpu/training/trainer.py
+        ``local_opt_state``)."""
         def host(t):      # a copy: the next step updates ``t`` in place
             return t.detach().to("cpu", copy=True).numpy()
 
         out = {"count": 0, "mu": {}, "nu": {}}
+        if self.zero1 is not None:
+            count, mu, nu = self.zero1.full_state()
+            out["count"] = count
+            for (path, p), m, v in zip(self._trainable(), mu, nu):
+                out["mu"][path] = host(m.view(p.shape))
+                out["nu"][path] = host(v.view(p.shape))
+            return out
         for path, p in self._trainable():
             st = self.optimizer.state[p]
             out["count"] = int(st["step"])
@@ -617,8 +756,10 @@ class Trainer:
         :meth:`opt_state`; its count becomes every parameter's Adam step)
         into this trainer's tensors with ``copy_``.  Nothing is rebound,
         so captured graphs stay valid (cliora_tpu/training/trainer.py:
-        531-559 ``install_state``, without a mesh).  Raises
-        ``ValueError`` on a missing path or a shape that differs."""
+        531-559 ``install_state``).  Under a dp mesh every rank must
+        call it: the parameters are then rank 0's, and ZeRO-1 keeps the
+        rank's slice of the optimizer state.  Raises ``ValueError`` on a
+        missing path or a shape that differs."""
         def put(dst, src, what):
             src = torch.as_tensor(src)
             if tuple(src.shape) != tuple(dst.shape):
@@ -633,6 +774,9 @@ class Trainer:
                 if path not in flat:
                     raise ValueError(f"params: no {path}")
                 put(p, flat[path], path)
+            replicate_tree(self.mesh, tree_leaves(self.params))
+            if self.zero1 is not None:
+                self.zero1.params_changed()
         if opt_state is not None:
             trainable = self._trainable()
             names = {k for k, _ in trainable}
@@ -642,11 +786,27 @@ class Trainer:
                         f"opt_state {part}: paths "
                         f"{sorted(set(opt_state[part]) ^ names)} do not "
                         f"match the trainable parameters")
+            if self.zero1 is not None:
+                for part in ("mu", "nu"):
+                    for path, p in trainable:
+                        shape = tuple(torch.as_tensor(
+                            opt_state[part][path]).shape)
+                        if shape != tuple(p.shape):
+                            raise ValueError(f"{part}/{path}: shape {shape} "
+                                             f"!= {tuple(p.shape)}")
+                self.zero1.install(
+                    int(opt_state["count"]),
+                    [opt_state["mu"][k] for k, _ in trainable],
+                    [opt_state["nu"][k] for k, _ in trainable])
+                return
             for path, p in trainable:
                 st = self.optimizer.state[p]
                 put(st["exp_avg"], opt_state["mu"][path], "mu/" + path)
                 put(st["exp_avg_sq"], opt_state["nu"][path], "nu/" + path)
                 st["step"].fill_(float(opt_state["count"]))
+            replicate_tree(self.mesh, [
+                self.optimizer.state[p][k] for _, p in trainable
+                for k in ("exp_avg", "exp_avg_sq")])
 
     def parameter_norm(self, trainable_only: bool = True) -> float:
         """Sum of per-parameter L2 norms (reference: trainer.py:360-367)."""

@@ -6,8 +6,9 @@ scripts/train_cliora.sh) run unchanged, with these differences.
 ``--parse_impl`` takes the port's routes ``auto``/``plain``/``cuda``
 (the JAX ``xla`` and ``pallas``), ``--attn_impl`` takes
 ``einsum``/``chunked``/``cuda`` (the JAX ``pallas``); ``--jax_cache_dir``
-is gone; ``--device`` (default ``cuda``) picks the trainer's device.
-Flags whose feature is not ported yet raise ``NotImplementedError``
+is gone; ``--device`` (default ``cuda``) picks the trainer's device;
+``--ckpt_backend orbax`` writes a torch.distributed.checkpoint
+directory.  Flags whose feature is not ported yet raise ``NotImplementedError``
 naming the ROADMAP item (:func:`refuse_unported`), rather than being
 accepted and ignored.  (reference: cliora/scripts/train.py:278-458,
 cliora/utils/flags.py:1-43)
@@ -49,23 +50,29 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--flags", default=None, type=str,
                    help="Load any settings from a flags file.")
 
-    # Distribution: not ported yet beyond one device (refuse_unported);
-    # legacy GPU flags accepted+ignored
+    # Distribution: one process a card in a torch.distributed group,
+    # from these flags or torch.distributed.run's environment
+    # (parallel/multihost.py); legacy GPU flags accepted+ignored
     p.add_argument("--device", default="cuda", type=str,
                    help="Device of the trainer: 'cuda' (default; raises "
-                        "without a card) or 'cpu'.")
+                        "without a card; NCCL between ranks) or 'cpu' "
+                        "(gloo between ranks).")
     p.add_argument("--n_devices", default=None, type=int,
-                   help="Width of the data-parallel group (1 only, "
-                        "until the parallelism slice of the port).")
+                   help="Width of the data-parallel group: must equal "
+                        "the world size (one process a card).")
     p.add_argument("--mp", default=1, type=int,
-                   help="Tensor-parallel width (1 only, until the "
-                        "parallelism slice of the port).")
+                   help="Tensor-parallel width (1 only: tensor "
+                        "parallelism is not ported, ROADMAP A8).")
     p.add_argument("--cuda", action="store_true")       # ignored
     p.add_argument("--multigpu", action="store_true")   # ignored
-    p.add_argument("--local_rank", default=None, type=int)  # ignored
+    p.add_argument("--local_rank", default=None, type=int,
+                   help="This process's rank (with --world_size) and "
+                        "card.")
     p.add_argument("--master_addr", default="127.0.0.1", type=str)
     p.add_argument("--master_port", default="29500", type=str)
-    p.add_argument("--world_size", default=None, type=int)
+    p.add_argument("--world_size", default=None, type=int,
+                   help="Processes of the group; with --master_addr, "
+                        "--master_port and --local_rank in each.")
 
     # Logging
     p.add_argument("--default_experiment_directory", default="./log",
@@ -239,8 +246,8 @@ def argument_parser() -> argparse.ArgumentParser:
                         "(contrastive/VG negatives) scope to the "
                         "microbatch.")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 sharded Adam state (not ported yet: "
-                        "ROADMAP A8).")
+                   help="ZeRO-1: Adam's state and update sharded over "
+                        "the data-parallel group (parallel/sharding.py).")
     p.add_argument("--remat_policy", default="full",
                    choices=("full", "dots", "gathers"),
                    help="what a checkpointed level keeps for its "
@@ -283,7 +290,9 @@ def argument_parser() -> argparse.ArgumentParser:
                    choices=("npz", "orbax"),
                    help="per-epoch checkpoint format: 'npz' (plus the "
                         ".pt torch export and the .opt.pkl optimizer "
-                        "state); 'orbax' is not ported yet (ROADMAP A5).")
+                        "state); 'orbax': a sharded async "
+                        "torch.distributed.checkpoint directory "
+                        "(model.epoch_N.dcp; not an Orbax directory).")
 
     # Parsing
     p.add_argument("--postprocess", action="store_true")
@@ -311,11 +320,7 @@ def argument_parser() -> argparse.ArgumentParser:
 # flag values whose feature the port does not have yet -> the ROADMAP item
 # that brings it
 _UNPORTED = (
-    ("--mp > 1", lambda o: o.mp > 1, "A8"),
-    ("--n_devices > 1", lambda o: (o.n_devices or 1) > 1, "A8"),
-    ("--world_size", lambda o: o.world_size is not None, "A8"),
-    ("--zero1", lambda o: o.zero1, "A8"),
-    ("--ckpt_backend orbax", lambda o: o.ckpt_backend == "orbax", "A5"),
+    ("--mp > 1", lambda o: o.mp > 1, "A8, tensor parallelism"),
     ("--emb elmo", lambda o: o.emb == "elmo", "A6"),
 )
 

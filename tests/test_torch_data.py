@@ -193,15 +193,29 @@ def test_flags_parse_like_jax(script):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--mp", "2"], "A8"), (["--n_devices", "2"], "A8"),
-    (["--world_size", "2"], "A8"), (["--zero1"], "A8"),
-    (["--ckpt_backend", "orbax"], "A5"), (["--emb", "elmo"], "A6")])
+    (["--mp", "2"], "A8, tensor parallelism"), (["--emb", "elmo"], "A6")])
 def test_unported_flags_raise(flag, item, tmp_path):
     """A flag whose feature is not ported yet raises, naming the ROADMAP
     item, instead of being accepted and ignored."""
     args = flag + ["--experiment_path", str(tmp_path)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_flags.parse_args(port_flags.argument_parser(), args)
+
+
+@pytest.mark.parametrize("flag, field, value", [
+    (["--n_devices", "2"], "n_devices", 2),
+    (["--world_size", "2"], "world_size", 2),
+    (["--zero1"], "zero1", True),
+    (["--ckpt_backend", "orbax"], "ckpt_backend", "orbax")])
+def test_dp_flags_parse(flag, field, value, tmp_path):
+    """The data-parallel and checkpoint flags, refused until the
+    parallelism slice of the port, now parse as the JAX CLI's do
+    (tests/test_torch_multihost.py and tests/test_torch_dist_ckpt.py
+    run them)."""
+    args = flag + ["--experiment_path", str(tmp_path)]
+    got = port_flags.parse_args(port_flags.argument_parser(), args)
+    want = jax_flags.parse_args(jax_flags.argument_parser(), args)
+    assert getattr(got, field) == getattr(want, field) == value
 
 
 @pytest.mark.parametrize("flag, field, value", [

@@ -146,25 +146,62 @@ def test_eval_batch_trees_matches_jax(length, padded):
 
 
 def test_run_eval_refuses_more_than_one_process(monkeypatch):
-    """The counter reduction across processes is not ported: under a
-    ``torch.distributed`` group of more than one process ``run_eval`` is
-    refused before any batch is read; a group of one is served."""
-    import torch.distributed as dist
+    """Formerly a refusal, now the distributed eval: under a trainer's dp
+    mesh of two ranks, rank 1 parses every second evaluable batch (a
+    batch of length 2 is not counted), and the counters and per-sentence
+    F1s of the group are gathered (the other rank's share stubbed) into
+    the metrics one process computes over every batch."""
+    from cliora_tpu_torch.parallel.mesh import Mesh
+
+    n, rows = 5, 2
+    rs = np.random.RandomState(0)
+    batches = [{"sentences": np.zeros((rows, L)), "length": L,
+                "batch_size": rows,
+                "GT": [sorted(_span_sets(rs, L)[1]) + [(0, L - 1)]
+                       for _ in range(rows)]}
+               for L in (n, 2, n, n, n)]
+    offs = np.concatenate([[0], np.cumsum(np.arange(n, 0, -1))])
+    bps = []
+    for _ in batches:
+        bp = np.zeros((rows, offs[-1]), np.int32)
+        for level in range(1, n):
+            bp[:, offs[level]:offs[level + 1]] = rs.randint(
+                0, level, (rows, n - level))
+        bps.append(bp)
 
     class Trainer:
-        def parse(self, *a, **k):
-            raise AssertionError("no batch should be parsed")
+        def __init__(self, mesh):
+            self.mesh, self.parsed = mesh, []
 
-    class Empty:
+        def parse(self, bm, **k):
+            i = next(j for j, b in enumerate(batches) if b is bm)
+            self.parsed.append(i)
+            return {"cky_bp": bps[i]}, {}
+
+    class It:
         def get_iterator(self, random_seed=None):
-            return iter(())
+            return iter(batches)
 
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="one process"):
-        teval.run_eval(Trainer(), iterator=None)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 1)
-    assert teval.run_eval(Trainer(), Empty()) == {
-        "corpus_f1": 0.0, "sent_f1": 0.0, "grounding_acc": 0.0,
-        "ccra": 0.0}
+    one = Trainer(None)
+    want = teval.run_eval(one, It())
+    assert one.parsed == [0, 2, 3, 4]
+
+    shares = {}
+
+    def gather(out, mine, group=None):
+        shares[1] = mine
+        out[:] = [shares[0], shares[1]]
+
+    rank0 = Trainer(Mesh(size=2, rank=0, backend="gloo"))
+    monkeypatch.setattr(teval, "_reduce_counters",
+                        lambda *a: shares.__setitem__(0, a))
+    teval.run_eval(rank0, It())
+    assert rank0.parsed == [0, 3]
+    f1, grounding, by_batch, _ = shares[0]
+    shares[0] = (f1.tp, f1.fp, f1.fn, grounding.total, grounding.recalled,
+                 grounding.ccr, by_batch)
+    monkeypatch.undo()
+    monkeypatch.setattr(teval.dist, "all_gather_object", gather)
+    rank1 = Trainer(Mesh(size=2, rank=1, backend="gloo"))
+    assert teval.run_eval(rank1, It()) == want
+    assert rank1.parsed == [2, 4]

@@ -246,10 +246,9 @@ def test_bf16_step_tracks_f32():
 
 
 def test_train_config_refusals():
-    """ZeRO-1 is refused until its slice lands, and the span x region
-    route must be one the port has (gradient accumulation landed:
-    tests/test_torch_accum.py)."""
-    with pytest.raises(NotImplementedError, match="zero1"):
-        tt.TrainConfig(zero1=True)
+    """The span x region route must be one the port has.  ZeRO-1 and
+    gradient accumulation, refused until their slices landed, build
+    (tests/test_torch_parallel.py, tests/test_torch_accum.py)."""
+    assert tt.TrainConfig(zero1=True).zero1
     with pytest.raises(ValueError):
         tt.TrainConfig(attn_impl="pallas")
