@@ -75,6 +75,21 @@ width with random weights from a seed:
     ranks sharing the card (eager f32 steps, 64 + 64 rows) against one
     process, ZeRO-1 against replicated, a world-2 DCP save restored at
     world 1, ``Trainer.steps`` refused under gloo;
+  * tensor parallelism (phase ``tp``): K2-K4 at the mp step's calls
+    against their plain versions; the script started again under
+    ``python -m torch.distributed.run`` as two gloo ranks sharing the
+    card at (dp, mp) = (1, 2) (the bench model's first step in f32 and
+    bf16 at dropout 0 and 0.1 against one process, its whole clipped
+    gradients, each rank's slice shapes, K2-K4 2 a step, step ms and peak
+    memory a rank; the tests' small model over 3 steps; a full-width
+    DIORA parse on the plain route; the chief's ``.npz`` and ``.opt.pkl``
+    against one process and resumed at mp = 1; the train CLI with ``--mp
+    2``) and as four at (2, 2) (the small model, ZeRO-1); gloo moves every
+    collective through the host, so its times are not tensor-parallel
+    performance, and an NCCL mp step across cards needs several cards;
+  * the ELMo char-CNN (phase ``elmo``) at the published width with
+    random weights over 10,000 words, card against CPU, then the train
+    CLI with ``--emb elmo`` from the cache the phase writes;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -99,7 +114,8 @@ build fails if that K4 kernel spills.
 
 Prints one JSON object per phase, then the ``kernels`` summary (each
 kernel's launches on the main paths, by phase and stage: ``cli_launches``,
-``arch_launches``, ``dp_launches``), then the
+``arch_launches``, ``dp_launches``, ``tp_launches``, ``elmo_launches``),
+then the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before the last line; without a CUDA device it exits non-zero at once.
@@ -165,7 +181,10 @@ from cliora_tpu_torch.training.trainer import (
     compute_losses,
     tree_leaves,
 )
+from cliora_tpu_torch.data import elmo
+from cliora_tpu_torch.data.embeddings import elmo_cache_path
 from cliora_tpu_torch.utils import flags as cli_flags
+from cliora_tpu_torch.utils.device_probe import card_info
 
 B, N, D, E, V = 128, 20, 400, 1024, 10_000
 K_NEG, R, F = 100, 36, 2048        # bench.py:42
@@ -314,11 +333,7 @@ def check(cond, what):
 
 
 def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return card_info()["line"]
 
 
 def max_sm_clock_hz():
@@ -3583,12 +3598,13 @@ NOT_DP = ("two ranks share one card and gloo moves every collective "
           "through the host: not data-parallel performance")
 
 
-def dp_kernels():
-    """K2-K4 at the dp step's calls (A = 64 against C = 128) against their
-    plain versions, with the segment counts those shapes give."""
+def dp_kernels(phase="dp_kernel", calls=DP_SR_CALLS, seed=SEED + 6):
+    """K2-K4 at a parallel step's calls (``calls``: the dp step's A = 64
+    against C = 128 by default) against their plain versions, with the
+    segment counts those shapes give."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    for tag, (a, m, c, r, d, dtype) in DP_SR_CALLS.items():
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for tag, (a, m, c, r, d, dtype) in calls.items():
         tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         span = torch.randn(a, m, d, generator=gen, device=dev).to(tdt)
         obj = torch.randn(c, r, d, generator=gen, device=dev)
@@ -3596,9 +3612,9 @@ def dp_kernels():
         rec = span_region_vs_plain(span, obj, g)
         rec["dobj_segments"] = span_region.dobj_segments(
             a * m, c, r, d, dtype == "bfloat16")
-        emit({"phase": "dp_kernel", "call": tag, "dtype": dtype,
+        emit({"phase": phase, "call": tag, "dtype": dtype,
               "span": [a, m, d], "obj": [c, r, d], **rec})
-        check_span_region(rec, f"dp span_region {tag} {dtype}",
+        check_span_region(rec, f"{phase} span_region {tag} {dtype}",
                           dtype == "bfloat16")
     torch.cuda.empty_cache()
 
@@ -3952,7 +3968,8 @@ def dp_child(mode, work):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels.build(SOURCES)          # built by the parent: loads
-    rec = (dp_child_nccl if mode == "nccl" else dp_child_gloo)(work)
+    rec = {"nccl": dp_child_nccl, "gloo": dp_child_gloo,
+           "tp2": tp_child_two, "tp4": tp_child_four}[mode](work)
     with open(os.path.join(work, f"{mode}.rank{dist.get_rank()}.json"),
               "w") as f:
         json.dump(rec, f)
@@ -4221,6 +4238,576 @@ def dp_path(cli_sents):
     return launches
 
 
+# -- phase tp: tensor parallelism over torch.distributed ----------------------
+
+# two gloo ranks on the one card at (dp, mp) = (1, 2): each rank holds the
+# whole batch and its half of the cut weights, so K2-K4 see the train
+# step's own calls (every rank's whole span and region vectors)
+TP_MP = 2
+TP_SR_CALLS = {"vg": (B, N, B, R, D, "float32"),
+               "contrastive": (B, ncells(N), B, R, D, "bfloat16"),
+               "contrastive_f32": (B, ncells(N), B, R, D, "float32")}
+# the bench model's configurations held on their first step (at the
+# route tolerances, ROUTE_LOSS_RTOL / ROUTE_GRAD_COS); a second step is
+# timed.  Under bf16 a loss may also part from one process's by as much
+# as one process's bf16 loss parts from its f32 loss on the same weights:
+# the cut GEMMs round some bf16 chart entries the other way, and the
+# contrastive loss exponentiates the span scores (measured on an H100:
+# one process's bf16 contrastive loss 3.1 % from its f32 loss at dropout
+# 0.1, the two ranks' 0.8 %)
+TP_FULL = (("f32_dropout0", "float32", 0.0), ("f32_dropout01", "float32", 0.1),
+           ("bf16_dropout0", "bfloat16", 0.0),
+           ("bf16_dropout01", "bfloat16", 0.1))
+TP_SMALL = (("small_dropout0", 0.0, False), ("small_dropout01", 0.1, False),
+            ("small_zero1", 0.1, True))
+# the full-width DIORA parse under mp against one process's plain route:
+# backpointers equal but at near-ties (the other split's score within
+# TP_SPLIT_GAP_RTOL of the best's in one process's chart), at most
+# TP_PARSE_MAX_DIFFER cells of 26,880 (an H100's runs: 1)
+TP_SPLIT_GAP_RTOL = 1e-4
+TP_PARSE_MAX_DIFFER = 8
+# the train CLI at (1, 2): a small corpus, at most a few steps (the
+# full batches its lengths give) and the eval
+TP_CLI_TRAIN, TP_CLI_TEST, TP_CLI_STEPS = 256, 64, 4
+NOT_TP = ("the ranks share one card and gloo moves every collective "
+          "through the host: not tensor-parallel performance")
+NO_NCCL_TP = ("an NCCL mp step across cards and its captured graph need a "
+              "machine of several cards: two NCCL ranks cannot share one "
+              "card, and Trainer.steps (the CUDA graph) needs NCCL")
+
+
+def tp_join(world):
+    """Join torch.distributed.run's gloo group on card 0; the dp x mp
+    mesh."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    return make_mesh(world, mp=TP_MP)
+
+
+def tp_small_case(tag, dropout, zero1):
+    cfg, tc = dp_small_configs(dropout, zero1=zero1)
+    flat = perturbed(Trainer.build(cfg, tc, 50, seed=SEED, device="cpu")
+                     .params, np.random.RandomState(SEED + 11))
+    return cfg, tc, flat, dp_small_batches(np.random.RandomState(SEED + 12))
+
+
+def tp_small_runs(mesh, dev, arrays, cases, save_dir=None):
+    """The tests' small model over DP_BATCHES steps on each rank's rows:
+    the losses, and the whole parameters and Adam state into ``arrays``;
+    with ``save_dir`` the chief writes ``small_dropout0``'s ``tp.npz`` and
+    ``tp.opt.pkl`` there."""
+    rec = {}
+    for tag, dropout, zero1 in cases:
+        cfg, tc, flat, batches = tp_small_case(tag, dropout, zero1)
+        tr = dp_trainer(cfg, tc, flat, dev, mesh)
+        losses = [{k: float(v) for k, v in tr.step({
+            k: torch.as_tensor(v).to(dev)
+            for k, v in shard_batch(mesh, b).items()}).items()}
+            for b in batches]
+        opt = tr.opt_state()
+        arrays.update({f"{tag}/param/{k}": v
+                       for k, v in flatten(tr.full_params()).items()})
+        arrays.update({f"{tag}/opt/{p}/{k}": v for p in ("mu", "nu")
+                       for k, v in opt[p].items()})
+        rec[tag] = {"losses": losses}
+        if tag == "small_dropout0" and save_dir is not None:
+            # the chief writes the whole tensors, as a run without a group
+            params = tr.full_params()
+            if dist.get_rank() == 0:
+                save_params(os.path.join(save_dir, "tp.npz"), params)
+                save_opt_state(os.path.join(save_dir, "tp.opt.pkl"), opt)
+        del tr
+    return rec
+
+
+def tp_full_runs(mesh, dev, arrays):
+    """The bench model at (1, 2), each configuration of TP_FULL: two steps
+    on one batch (the first held, the second timed), K2-K4 counted, the
+    whole clipped gradients of the first step, each rank's slice shapes
+    and peak memory; one profiled step."""
+    rec = {}
+    batch = dp_global_batches(np.random.RandomState(SEED + 8))[0]
+    mine = {k: torch.as_tensor(v).to(dev)
+            for k, v in shard_batch(mesh, batch).items()}
+    for tag, dtype, dropout in TP_FULL:
+        cfg, tc = train_configs(dtype, attn_dropout=dropout)
+        flat = dp_flat(cfg, tc)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = dp_trainer(cfg, tc, flat, dev, mesh)
+        steps = []
+        for i in range(2):
+            zero_counts()
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in tr.step(mine).items()}   # syncs
+            steps.append({"losses": m, "launches": kernel_counts(),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+            if i == 0:
+                arrays.update({f"{tag}/grad/{k}":
+                               tr._whole(k, p.grad).cpu().numpy()
+                               for k, p in tr._trainable()})
+        torch.cuda.synchronize()
+        shapes = {k: list(p.shape) for k, p in zip(
+            ("diora/inside_compose/fc0/w", "embed/embeddings"),
+            (tr.params["diora"]["inside_compose"]["fc0"]["w"],
+             tr.params["embed"]["embeddings"]))}
+        rec[tag] = {"steps": steps, "shapes": shapes,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - before}
+        if tag == "f32_dropout01":
+            by_kernel = profile_kernels(lambda: tr.step(mine))
+            rec[tag]["profiled_step"] = {
+                k: own_launches(by_kernel, k)
+                for k in SR_KERNELS + ("segment_reduce",)}
+        del tr
+        free_card()
+    return rec
+
+
+def tp_parse_batch():
+    rs = np.random.RandomState(SEED + 13)
+    return {"sentences": rs.randint(2, V, (B, N))}
+
+
+def tp_split_gaps(tr, bp, other_bp):
+    """At every cell where ``other_bp`` picks another split than ``bp``
+    (one process's plain route on the parse batch, trainer ``tr``), the
+    split scores of both choices in one process's chart: a CKY
+    backpointer is the first split of highest score (every split of a
+    cell adds the same child values).  Returns ``[(own score, other
+    score)]``."""
+    from cliora_tpu_torch.chart.indices import INDEX
+
+    tokens = torch.as_tensor(tp_parse_batch()["sentences"]).to(tr.device)
+    with torch.no_grad():
+        out, _ = trainer_mod.forward_outputs(
+            tr.cfg, tr.tc, tr.params, tokens, train=False, outside=False)
+        ih, ins = out.chart.inside_h.float(), out.chart.inside_s[..., 0]
+        mat = tr.params["diora"]["inside_score"]["mat"]
+        lev, pos = (x[0].cpu().numpy() for x in INDEX.coords(N, tr.device))
+        pairs = []
+        for b, cell in zip(*np.nonzero(bp != other_bp)):
+            idx_l, idx_r = INDEX.inside(N, int(lev[cell]), tr.device)
+            scores = []
+            for split in (bp[b, cell], other_bp[b, cell]):
+                i = int(pos[cell]) * int(lev[cell]) + int(split)
+                left, right = int(idx_l[i]), int(idx_r[i])
+                scores.append(float(ih[b, left] @ mat @ ih[b, right]
+                                    + ins[b, left] + ins[b, right]))
+            pairs.append(tuple(scores))
+    return pairs
+
+
+def tp_cli_args(work, mp):
+    corpus = os.path.join(work, "corpus")
+    return (DIORA_FLAGS
+            + ["--data_type", "flickr",
+               "--train_path", os.path.join(corpus, "flickr_train.json"),
+               "--validation_path", os.path.join(corpus, "flickr_test.json"),
+               "--data_path", corpus + "/", "--steps_per_call", "1",
+               "--max_epoch", "1", "--max_step", str(TP_CLI_STEPS),
+               "--experiment_path", os.path.join(work, f"cli_mp{mp}")]
+            + (["--mp", str(mp)] if mp > 1 else []))
+
+
+def tp_child_two(work):
+    """One of two gloo ranks on the one card at (dp, mp) = (1, 2), CUDA
+    tensors, eager steps: the bench model's configurations, the tests'
+    small model, a full-width DIORA parse, and the train CLI with
+    ``--mp 2`` (the group is made here, so the CLI joins it)."""
+    mesh = tp_join(TP_MP)
+    dev = torch.device("cuda", 0)
+    rec = {"rank": dist.get_rank(), "backend": mesh.backend,
+           "grid": [mesh.size, mesh.rank, mesh.mp, mesh.mp_rank]}
+    arrays = {}
+    rec["full"] = tp_full_runs(mesh, dev, arrays)
+    rec["small"] = tp_small_runs(mesh, dev, arrays, TP_SMALL[:2], work)
+    cfg, tc, flat = dp_diora(dev)
+    tr = dp_trainer(cfg, tc, flat, dev, mesh)
+    zero_counts()
+    t0 = time.perf_counter()
+    res, _ = tr.parse(tp_parse_batch())
+    rec["parse"] = {"route": res["parse_impl"], "launches": kernel_counts(),
+                    "ms": (time.perf_counter() - t0) * 1e3}
+    arrays["parse/cky_bp"] = res["cky_bp"]
+    del tr
+    free_card()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, records = cli_train.main(tp_cli_args(work, TP_MP))
+    rec["cli"] = {"records": records, "launches": kernel_counts(),
+                  "mp": tr.mesh.mp, "wall_seconds": time.perf_counter() - t0}
+    np.savez(os.path.join(work, f"tp2.rank{mesh.rank * TP_MP + mesh.mp_rank}"
+                                f".npz"), **arrays)
+    return rec
+
+
+def tp_child_four(work):
+    """One of four gloo ranks on the one card at (dp, mp) = (2, 2): the
+    tests' small model on the dp row's rows, replicated and ZeRO-1."""
+    mesh = tp_join(2 * TP_MP)
+    dev = torch.device("cuda", 0)
+    arrays = {}
+    rec = {"rank": dist.get_rank(),
+           "grid": [mesh.size, mesh.rank, mesh.mp, mesh.mp_rank],
+           "small": tp_small_runs(mesh, dev, arrays, TP_SMALL[1:])}
+    np.savez(os.path.join(work, f"tp4.rank{dist.get_rank()}.npz"), **arrays)
+    return rec
+
+
+def tp_one_process_small(dev, tag, dropout, zero1, steps=DP_BATCHES):
+    cfg, tc, flat, batches = tp_small_case(tag, dropout, zero1)
+    tr = dp_trainer(cfg, dataclasses.replace(tc, zero1=False), flat, dev)
+    losses = [{k: float(v) for k, v in tr.step(b).items()}
+              for b in batches[:steps]]
+    return tr, losses, batches
+
+
+def tp_check_small(ranks, recs, dev, tags):
+    """Each rank's small-model runs against one process: losses relative
+    over the steps, whole parameters on the moved entries."""
+    out = {}
+    for tag, dropout, zero1 in TP_SMALL:
+        if tag not in tags:
+            continue
+        tr, losses, _ = tp_one_process_small(dev, tag, dropout, zero1)
+        params, opt = dp_state(tr)
+        moved = dp_moved(opt)
+        rel = max(abs(r["small"][tag]["losses"][i][k] - s[k]) / abs(s[k])
+                  for r in recs for i, s in enumerate(losses) for k in s)
+        diff = max(dp_max_diff({k[len(f"{tag}/param/"):]: v
+                                for k, v in rk.items()
+                                if k.startswith(f"{tag}/param/")},
+                               params, moved) for rk in ranks)
+        out[tag] = {"loss_max_rel": rel, "param_max_abs_moved": diff}
+        check(rel <= DP_LOSS_RTOL and diff <= DP_PARAM_ATOL,
+              f"tp {tag}: against one process {out[tag]}")
+    return out
+
+
+def tp_reference(work, two, four):
+    """The tp ranks against one process on the card."""
+    dev = torch.device("cuda")
+    ranks2 = [dict(np.load(os.path.join(work, f"tp2.rank{r}.npz")))
+              for r in range(TP_MP)]
+    ranks4 = [dict(np.load(os.path.join(work, f"tp4.rank{r}.npz")))
+              for r in range(2 * TP_MP)]
+    out = {"note": NOT_TP, "nccl": NO_NCCL_TP, "full": {}}
+    batch = dp_global_batches(np.random.RandomState(SEED + 8))[0]
+    for tag, dtype, dropout in TP_FULL:
+        cfg, tc = train_configs(dtype, attn_dropout=dropout)
+        flat = dp_flat(cfg, tc)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = dp_trainer(cfg, tc, flat, dev)
+        steps = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            steps.append({k: float(v) for k, v in tr.step(batch).items()})
+            steps[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                grads = dp_grads(tr)
+        peak = torch.cuda.max_memory_allocated() - before
+        first = steps[0]
+        rel = max(abs(r["full"][tag]["steps"][0]["losses"][k] - first[k])
+                  / abs(first[k]) for r in two for k in
+                  r["full"][tag]["steps"][0]["losses"])
+        cos, least = dp_cosines({k[len(f"{tag}/grad/"):]: v
+                                 for k, v in ranks2[0].items()
+                                 if k.startswith(f"{tag}/grad/")}, grads)
+        res = {"one_process_first_step": first,
+               "one_process_step_ms": [s["ms"] for s in steps],
+               "one_process_peak_bytes": peak,
+               "rank_step_ms": [[s["ms"] for s in r["full"][tag]["steps"]]
+                                for r in two],
+               "rank_peak_bytes": [r["full"][tag]["peak_bytes"] for r in two],
+               "first_step_loss_max_rel": rel,
+               "first_step_grad_cosine": cos,
+               "min_first_step_grad_cosine": least,
+               "leaves_below_0.999": sorted(k for k, v in cos.items()
+                                            if v < 0.999),
+               "grad_leaves_left_out": list(DP_ZERO_GRAD_LEAVES),
+               "shapes": [r["full"][tag]["shapes"] for r in two]}
+        if dtype == "bfloat16":
+            # the same weights' f32 step: how far bf16 itself moves the
+            # losses
+            f32_tr = dp_trainer(dataclasses.replace(cfg,
+                                                    compute_dtype="float32"),
+                                tc, flat, dev)
+            res["one_process_f32_first_step"] = {
+                k: float(v) for k, v in f32_tr.step(batch).items()}
+            del f32_tr
+        # each loss's allowance: the route tolerance, or under bf16 the
+        # distance of one process's bf16 loss from its f32 loss
+        f32_first = res.get("one_process_f32_first_step", {})
+        res["loss_allowance"] = {
+            k: max(ROUTE_LOSS_RTOL[dtype] * abs(first[k]),
+                   abs(first[k] - f32_first[k]) if k in f32_first else 0.0)
+            for k in first if k != "ms"}
+        res["first_step_loss_max_abs_diff"] = {
+            k: max(abs(r["full"][tag]["steps"][0]["losses"][k] - first[k])
+                   for r in two) for k in res["loss_allowance"]}
+        out["full"][tag] = res
+        emit({"phase": "tp_full", "config": tag, "dtype": dtype,
+              "card": nvidia_smi_line(),
+              "rank_first_step": [r["full"][tag]["steps"][0]["losses"]
+                                  for r in two], **res})
+        check(all(res["first_step_loss_max_abs_diff"][k]
+                  <= res["loss_allowance"][k] for k in res["loss_allowance"])
+              and least >= ROUTE_GRAD_COS[dtype],
+              f"tp {tag}: the first step against one process "
+              f"{res['first_step_loss_max_abs_diff']} (allowed "
+              f"{res['loss_allowance']}), {least}")
+        for r in two:
+            check(r["full"][tag]["shapes"] == {
+                "diora/inside_compose/fc0/w": [D // TP_MP, 2 * D],
+                "embed/embeddings": [V, E // TP_MP]},
+                f"tp {tag}: slice shapes {r['full'][tag]['shapes']}")
+            for st in r["full"][tag]["steps"]:
+                check(all(st["launches"][k] == 2 for k in SR_KERNELS),
+                      f"tp {tag} rank {r['rank']}: K2-K4 launches "
+                      f"{st['launches']}, expected 2 each a step")
+            prof = r["full"].get("f32_dropout01", {}).get("profiled_step")
+            if tag == "f32_dropout01":
+                check(all(prof[k] == 2 for k in SR_KERNELS),
+                      f"tp rank {r['rank']}: K2-K4 in a profiled step "
+                      f"{prof}")
+        del tr
+        free_card()
+    out["small_two_ranks"] = tp_check_small(ranks2, two, dev,
+                                            ("small_dropout0",
+                                             "small_dropout01"))
+    out["small_four_ranks"] = tp_check_small(ranks4, four, dev,
+                                             ("small_dropout01",
+                                              "small_zero1"))
+    # ZeRO-1 against replicated at (2, 2)
+    z = max(dp_max_diff(
+        {k[len("small_zero1/param/"):]: v for k, v in rk.items()
+         if k.startswith("small_zero1/param/")},
+        {k[len("small_dropout01/param/"):]: v for k, v in rk.items()
+         if k.startswith("small_dropout01/param/")},
+        dp_moved({"nu": {k[len("small_dropout01/opt/nu/"):]: v
+                         for k, v in rk.items()
+                         if k.startswith("small_dropout01/opt/nu/")}}))
+        for rk in ranks4)
+    out["zero1_four_ranks_param_max_abs_moved"] = z
+    check(z <= DP_ZERO1_ATOL, f"tp: ZeRO-1 at (2, 2) against replicated {z}")
+    # the parse: the plain route and one process's backpointers, but at
+    # near-ties: where the ranks pick another split, its score in one
+    # process's chart is within TP_SPLIT_GAP_RTOL of the best split's
+    cfg, tc, flat = dp_diora(dev)
+    one = dp_trainer(cfg, tc, flat, dev)
+    want, _ = one.parse(tp_parse_batch(), impl="plain")
+    differ = [int((rk["parse/cky_bp"] != want["cky_bp"]).sum())
+              for rk in ranks2]
+    gaps = tp_split_gaps(one, want["cky_bp"], ranks2[0]["parse/cky_bp"])
+    out["parse"] = {"routes": [r["parse"]["route"] for r in two],
+                    "ms": [r["parse"]["ms"] for r in two],
+                    "launches": [r["parse"]["launches"] for r in two],
+                    "cells": int(want["cky_bp"].size),
+                    "cells_differ": differ,
+                    "differing_split_scores": gaps,
+                    "gap_rtol": TP_SPLIT_GAP_RTOL}
+    check(all(r["parse"]["route"] == "plain" for r in two)
+          and max(differ) <= TP_PARSE_MAX_DIFFER
+          and all(0 <= own - other <= TP_SPLIT_GAP_RTOL * abs(own)
+                  for own, other in gaps), f"tp parse: {out['parse']}")
+    # the .npz and .opt.pkl of (1, 2) against one process, then resumed at
+    # mp = 1 for a step
+    tr, losses, batches = tp_one_process_small(dev, "small_dropout0", 0.0,
+                                               False)
+    params, opt = dp_state(tr)
+    got, _ = load_params(os.path.join(work, "tp.npz"), tr.params)
+    got_opt = load_opt_state(os.path.join(work, "tp.opt.pkl"))
+    moved = dp_moved(opt)
+    file_diff = dp_max_diff(flatten(got), params, moved)
+    opt_diff = max(float(np.abs(got_opt[p][k] - opt[p][k]).max())
+                   for p in ("mu", "nu") for k in opt[p])
+    resumed = dp_trainer(tr.cfg, tr.tc, flatten(got), dev)
+    resumed.install_state(opt_state=got_opt)
+    resumed.set_step(DP_BATCHES)
+    extra = train_batch(np.random.RandomState(SEED + 15), 8, 6, 50, 5, 3, 16)
+    m_res = float(resumed.step(extra)["total_loss"])
+    m_one = float(tr.step(extra)["total_loss"])
+    out["files"] = {"npz_param_max_abs_moved": file_diff,
+                    "opt_pkl_max_abs": opt_diff,
+                    "count": got_opt["count"],
+                    "resumed_mp1_next_loss": m_res,
+                    "one_process_next_loss": m_one}
+    check(file_diff <= DP_PARAM_ATOL and got_opt["count"] == DP_BATCHES
+          and abs(m_res - m_one) <= DP_LOSS_RTOL * abs(m_one),
+          f"tp files: {out['files']}")
+    # the CLI at (1, 2) against the same CLI in one process
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        one, one_records = cli_train.main(tp_cli_args(work, 1))
+    cli_two = [r["cli"] for r in two]
+    with np.load(os.path.join(work, "cli_mp2", "model.epoch_0.npz")) as zt, \
+            np.load(os.path.join(work, "cli_mp1", "model.epoch_0.npz")) as zo:
+        cli_diff = max(float(np.abs(zt[k] - zo[k]).max()) for k in zo.files)
+        keys_equal = sorted(zt.files) == sorted(zo.files)
+    out["cli"] = {"mp2": cli_two, "one_process": {
+        "records": one_records, "launches": kernel_counts()},
+        "npz_param_max_abs_vs_one_process": cli_diff,
+        "eval_equal_one_process": all(
+            c["records"][0]["metrics"] == one_records[0]["metrics"]
+            for c in cli_two)}
+    check(keys_equal and all(c["mp"] == TP_MP and c["records"]
+                             and c["records"][0]["step"]
+                             == one_records[0]["step"] > 0
+                             for c in cli_two)
+          and all(math.isfinite(v) for c in cli_two
+                  for v in c["records"][0]["metrics"].values()),
+          f"tp cli: {cli_two} against {one_records}")
+    del tr, resumed, one
+    free_card()
+    return out
+
+
+def tp_path():
+    """Phase ``tp``: K2-K4 at the mp step's calls; the script started
+    again under ``python -m torch.distributed.run`` as two gloo ranks at
+    (dp, mp) = (1, 2) and as four at (2, 2), all on the one card, held
+    against one process.  Returns the kernel counters of its stages."""
+    t_phase = time.perf_counter()
+    dp_kernels("tp_kernel", TP_SR_CALLS, SEED + 13)
+    free_card()
+    with tempfile.TemporaryDirectory() as work:
+        write_synthetic_flickr(os.path.join(work, "corpus"), TP_CLI_TRAIN,
+                               TP_CLI_TEST)
+        two, two_wall = dp_launch("tp2", TP_MP, work, 480)
+        four, four_wall = dp_launch("tp4", 2 * TP_MP, work, 240)
+        ref = tp_reference(work, two, four)
+    emit({"phase": "tp", "card": nvidia_smi_line(), "ranks": two,
+          "four_ranks": four, **ref})
+    r0 = two[0]
+    launches = {
+        "two_ranks_full_rank0": {k: sum(st["launches"][k]
+                                        for v in r0["full"].values()
+                                        for st in v["steps"])
+                                 for k in r0["parse"]["launches"]},
+        "two_ranks_parse_rank0": r0["parse"]["launches"],
+        "two_ranks_cli_rank0": r0["cli"]["launches"]}
+    emit({"phase": "tp_summary", "launches": launches,
+          "two_rank_child_wall_seconds": two_wall,
+          "four_rank_child_wall_seconds": four_wall,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# -- phase elmo: the ELMo char-CNN --------------------------------------------
+
+# the published elmo_2x4096_512_2048cnn_2xhighway options: 262 x 16 char
+# table, 2,048 filters of widths 1-7, 2 highways, projection 512, relu
+ELMO_FILTERS = ((1, 32), (2, 32), (3, 64), (4, 128), (5, 256), (6, 512),
+                (7, 1024))
+ELMO_WORDS = 10_000
+# the card's vectors against the CPU's, f32 with TF32 off: the largest
+# difference over the largest magnitude (cuDNN's convolutions and cuBLAS
+# add in other orders than the CPU's)
+ELMO_REL_TOL = 1e-4
+
+
+def elmo_weights(rs, scale=0.1):
+    """Random char-CNN weights at the published width, in
+    ``data/elmo.py:load_weights``' form (row 0 of the char table the zero
+    mask row)."""
+    def f(*shape):
+        return (scale * rs.randn(*shape)).astype(np.float32)
+
+    table = f(263, 16)
+    table[0] = 0.0
+    n = sum(num for _, num in ELMO_FILTERS)
+    return {"table": table,
+            "convs": [{"w": f(w, 16, num), "b": f(num), "width": w}
+                      for w, num in ELMO_FILTERS],
+            "highways": [{"w_t": f(n, n), "b_t": f(n), "w_c": f(n, n),
+                          "b_c": f(n)} for _ in range(2)],
+            "proj": {"w": f(n, 512), "b": f(512)},
+            "activation": "relu", "out_dim": 512}
+
+
+def elmo_vocab(rs, n):
+    """``n`` distinct words of 1-20 letters, some of them UTF-8, sorted:
+    the vocabulary of a synthetic corpus."""
+    letters = list("abcdefghijklmnopqrstuvwxyz") + ["é", "ß", "ж", "語"]
+    words = set()
+    while len(words) < n:
+        words.add("".join(rs.choice(letters, rs.randint(1, 21))))
+    return sorted(words)
+
+
+def elmo_path():
+    """Phase ``elmo``: the char-CNN at the published width on the card
+    against the CPU over ELMO_WORDS words (words/s, peak memory), then the
+    train CLI with ``--emb elmo`` for one epoch on the ``cli`` corpus,
+    reading the cache this phase writes from in-memory weights (the card
+    has no ``h5py`` for ``load_weights``)."""
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(SEED + 14)
+    weights = elmo_weights(rs)
+    words = elmo_vocab(rs, ELMO_WORDS)
+    dev = torch.device("cuda", 0)
+    elmo.embed_with(weights, words[:1024], device=dev)   # cuDNN's choice
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = elmo.embed_with(weights, words, device=dev)
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    t0 = time.perf_counter()
+    cpu = elmo.embed_with(weights, words, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max())
+    scale = float(np.abs(cpu).max())
+    rec = {"phase": "elmo", "card": nvidia_smi_line(), "words": len(words),
+           "filters": [list(f) for f in ELMO_FILTERS], "highways": 2,
+           "out_dim": 512, "card_seconds": card_s,
+           "card_words_per_s": len(words) / card_s,
+           "cpu_seconds": cpu_s, "cpu_words_per_s": len(words) / cpu_s,
+           "card_peak_bytes": peak, "max_abs_err": err, "max_abs": scale,
+           "rel_tol": ELMO_REL_TOL, "finite": bool(np.isfinite(card).all())}
+    check(rec["finite"] and err <= ELMO_REL_TOL * scale,
+          f"elmo: card against CPU {err} of {scale}")
+    with tempfile.TemporaryDirectory() as work:
+        corpus = os.path.join(work, "corpus")
+        write_synthetic_flickr(corpus, CLI_TRAIN, CLI_TEST)
+        with open(os.path.join(corpus, "flickr.dic.json")) as f:
+            word2idx = json.load(f)
+        cache = os.path.join(work, "elmo")
+        os.makedirs(cache)
+        path = elmo_cache_path(cache, word2idx)
+        np.save(path, elmo.embed_with(weights, sorted(word2idx), device=dev))
+        args = (with_flag(DIORA_FLAGS, "--emb", "elmo")
+                + ["--data_type", "flickr",
+                   "--train_path", os.path.join(corpus, "flickr_train.json"),
+                   "--validation_path",
+                   os.path.join(corpus, "flickr_test.json"),
+                   "--data_path", corpus + "/", "--elmo_cache_dir", cache,
+                   "--max_epoch", "1",
+                   "--experiment_path", os.path.join(work, "exp")]
+                + CLI_RUN_FLAGS)
+        (tr, records), cli = run_cli("elmo", cli_train.main, args, None)
+        rec["cli"] = {**cli, "vocab": len(word2idx),
+                      "input_size": tr.cfg.input_size,
+                      "cache_files": os.listdir(cache),
+                      "epochs": records,
+                      "epoch_log": cli_log_lines(os.path.join(work, "exp"),
+                                                 "EPOCH-END")}
+        check(tr.cfg.input_size == 1024 and records
+              and math.isfinite(records[0]["metrics"]["corpus_f1"])
+              and os.listdir(cache) == [os.path.basename(path)],
+              f"elmo cli: {rec['cli']}")
+        del tr
+    rec["wall_seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    free_card()
+    return {"cli": cli["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4286,7 +4873,16 @@ def main():
     cli["serve"] = serve_path()
     free_card()
     dp_counts = dp_path(cli_sents)
+    free_card()
+    tp_counts = tp_path()
+    free_card()
+    elmo_counts = elmo_path()
+    free_card()
     for entry in entries:
+        entry["tp_launches"] = {stage: counts[entry["name"]]
+                                for stage, counts in tp_counts.items()}
+        entry["elmo_launches"] = {stage: counts[entry["name"]]
+                                  for stage, counts in elmo_counts.items()}
         entry["dp_launches"] = {stage: counts[entry["name"]]
                                 for stage, counts in dp_counts.items()}
         entry["cli_launches"] = {stage: counts[entry["name"]]

@@ -50,7 +50,10 @@ def run_eval(trainer, iterator, seed: int = 11,
     evaluable batch, and the raw counters are summed across the group
     (cliora_tpu/analysis/eval.py:56-64,103-121); the per-sentence F1s
     are gathered in batch order, so every rank returns the one-process
-    metrics exactly.  All ranks must call it together.
+    metrics exactly.  Under tensor parallelism the mp ranks of one dp row
+    parse the same batches together (the parse is a collective over the
+    mp group) and the counters are summed over the dp group.  All ranks
+    must call it together.
     """
     mesh = getattr(trainer, "mesh", None)
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)

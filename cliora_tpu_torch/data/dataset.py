@@ -5,7 +5,8 @@ The port's copy of cliora_tpu/data/dataset.py.  The one change: the
 per-process chunking of train batches takes the ``torch.distributed``
 rank and world size where a process group is initialised (0 and 1
 otherwise) in place of ``jax.process_index()``/``process_count()``
-(cliora_tpu/data/dataset.py:219,246).
+(cliora_tpu/data/dataset.py:219,246), over the dp rows of a ``--mp``
+grid: the mp ranks of one row get the same rows.
 (reference: cliora/data/dataset.py)
 """
 
@@ -143,13 +144,14 @@ class ConsolidateDatasets:
             dset["embeddings"] = embeddings
 
 
-def process_rank_and_count():
-    """``(rank, world size)`` of this process's ``torch.distributed`` group,
-    or ``(0, 1)`` without one."""
+def process_rank_and_count(mp: int = 1):
+    """``(dp rank, dp size)`` of this process in its ``torch.distributed``
+    group laid out as a ``dp x mp`` grid (rank ``d * mp + m``,
+    parallel/mesh.py), or ``(0, 1)`` without one."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
+        return dist.get_rank() // mp, dist.get_world_size() // mp
     return 0, 1
 
 
@@ -236,7 +238,7 @@ def make_batch_iterator(options, dset, shuffle=True, include_partial=False,
     else:
         dataset = SimpleDataset(sentences)
 
-    rank, world = process_rank_and_count()
+    rank, world = process_rank_and_count(getattr(options, "mp", 1))
 
     # Per-process chunking applies to TRAIN batches only (each process
     # feeds its local shard of the global batch, reference rank chunking,

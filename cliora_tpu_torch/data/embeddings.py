@@ -2,10 +2,11 @@
 pickles, cached ELMo vectors, concatenations, or a trainable table.
 
 The port's copy of cliora_tpu/data/embeddings.py (reference:
-cliora/data/embeddings.py).  It reads the reference's ELMo cache format
-``elmo_{sha256-of-sorted-vocab}.npy``; the ELMo char-CNN that writes a
-missing cache (cliora_tpu/data/elmo.py) is not ported yet, so a missing
-cache raises.
+cliora/data/embeddings.py).  It reads and writes the reference's ELMo
+cache format ``elmo_{sha256-of-sorted-vocab}.npy``; a missing cache is
+computed by the port's char-CNN (data/elmo.py) from local weight files.
+The JAX package fetches a weight file given as a URL; the port takes
+local paths only.
 """
 
 from __future__ import annotations
@@ -107,13 +108,15 @@ def elmo_cache_path(cache_dir: str, word2idx: Dict[str, int]) -> str:
 
 
 def read_elmo(word2idx: Dict[str, int], cache_dir: str,
-              options_path=None, weights_path=None
+              options_path=None, weights_path=None, device=None
               ) -> Tuple[np.ndarray, Dict[str, int]]:
     """Context-insensitive ELMo vectors, duplicated to 1024-d.
 
-    Reads the reference-format on-disk cache (keyed by vocab hash); the
-    char-CNN that writes it when absent is not ported yet, so a missing
-    cache raises.  (reference: embeddings.py:46-109)
+    Prefers the reference-format on-disk cache (keyed by vocab hash); when
+    absent, runs the char-CNN (data/elmo.py, on ``device``: the card by
+    default) over the sorted vocab and writes the cache in the same
+    format (cliora_tpu/data/embeddings.py:120-150).
+    (reference: embeddings.py:46-109)
     """
     path = elmo_cache_path(cache_dir, word2idx)
     tokens = sorted(word2idx)
@@ -121,9 +124,17 @@ def read_elmo(word2idx: Dict[str, int], cache_dir: str,
         emb_sorted = np.load(path)
         assert emb_sorted.shape == (len(tokens), ELMO_DIM), emb_sorted.shape
     else:
-        raise NotImplementedError(
-            f"no ELMo cache at {path}: the char-CNN encoder (encode_chars, "
-            "cliora_tpu/data/elmo.py:106) is not ported yet (ROADMAP A6)")
+        from cliora_tpu_torch.data.elmo import embed_tokens
+        for flag, p in (("--elmo_options_path", options_path),
+                        ("--elmo_weights_path", weights_path)):
+            if p is None or str(p).startswith(("http://", "https://")):
+                raise ValueError(
+                    f"no ELMo cache at {path}: computing it takes the "
+                    f"weight files as local paths ({flag}={p!r})")
+        emb_sorted = embed_tokens(tokens, options_path, weights_path,
+                                  device=device)
+        os.makedirs(cache_dir, exist_ok=True)
+        np.save(path, emb_sorted)
 
     # re-order from alphabetical to word2idx order, then fwd/bwd duplicate
     sorted_pos = {tok: i for i, tok in enumerate(tokens)}
@@ -134,12 +145,12 @@ def read_elmo(word2idx: Dict[str, int], cache_dir: str,
 
 
 def read_both(glove_path: str, word2idx, cache_dir, options_path=None,
-              weights_path=None):
+              weights_path=None, device=None):
     """Concat GloVe + ELMo over the intersection vocab
     (reference: embeddings.py:137-152)."""
     e_w2v, w2i_w2v = read_glove(glove_path, word2idx)
     e_elmo, w2i_elmo = read_elmo(word2idx, cache_dir, options_path,
-                                 weights_path)
+                                 weights_path, device=device)
     vocab = [w for w, _ in sorted(w2i_w2v.items(), key=lambda kv: kv[1])
              if w in w2i_elmo]
     new_word2idx = {w: i for i, w in enumerate(vocab)}
@@ -162,15 +173,17 @@ def get_embeddings(options, embeddings_path, word2idx):
         return read_glove(embeddings_path, word2idx)
     if emb == "skip":
         return read_skip_thoughts(embeddings_path, word2idx)
+    # a missing ELMo cache is computed on the trainer's device
+    device = getattr(options, "device", None)
     if emb == "elmo":
         return read_elmo(word2idx, options.elmo_cache_dir,
                          options.elmo_options_path,
-                         options.elmo_weights_path)
+                         options.elmo_weights_path, device=device)
     if emb == "both":
         return read_both(embeddings_path, word2idx,
                          options.elmo_cache_dir,
                          options.elmo_options_path,
-                         options.elmo_weights_path)
+                         options.elmo_weights_path, device=device)
     if emb == "none":
         return len(word2idx), word2idx
     raise NotImplementedError(emb)

@@ -20,6 +20,7 @@ from cliora_tpu_torch.ops.core import (
     normalize,
     region_attention,
 )
+from cliora_tpu_torch.parallel.sharding import mp_slice, reduce_from_mp
 
 
 class DioraOutput(NamedTuple):
@@ -38,28 +39,41 @@ def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(ids, table)
 
 
-def embed_forward(ep, token_ids: torch.Tensor, trainable: bool = True):
+def embed_forward(ep, token_ids: torch.Tensor, trainable: bool = True,
+                  mp=None):
     """Token ids -> (emb_span, emb_word), each (B, L, D).
 
     ``trainable=False`` stops the gradient at the embedding table.
     (reference: cliora/net/trainer.py:219-224 ``Embed.forward``)
+    Tensor parallel (``mp``: the table and both projections cut on E):
+    the rank's E slice of each row, projected, the partial projections
+    all-reduced.
     """
     table = ep["embeddings"] if trainable else ep["embeddings"].detach()
     emb = table_rows(table, token_ids)                  # (B, L, E)
-    return emb @ ep["mat"].T, emb @ ep["mat1"].T
+    return (reduce_from_mp(emb @ ep["mat"].T, mp),
+            reduce_from_mp(emb @ ep["mat1"].T, mp))
 
 
-def embed_span(ep, token_ids: torch.Tensor) -> torch.Tensor:
+def embed_span(ep, token_ids: torch.Tensor, mp=None) -> torch.Tensor:
     """``emb_span`` of ``embed_forward`` alone, (B, L, D): the text parse
     reads no word embeddings."""
-    return table_rows(ep["embeddings"], token_ids) @ ep["mat"].T
+    return reduce_from_mp(table_rows(ep["embeddings"], token_ids)
+                          @ ep["mat"].T, mp)
 
 
-def image_encoder_forward(ip, obj_feats: torch.Tensor):
+def image_encoder_forward(ip, obj_feats: torch.Tensor, mp=None):
     """Region features (B, R, F) -> (span-branch, word-branch) embeddings,
-    each (B, R, D) f32.  (reference: cliora/net/utils.py:52-55)"""
+    each (B, R, D) f32.  (reference: cliora/net/utils.py:52-55)
+    Tensor parallel (``mp``: both maps cut on F): the rank's F slice of
+    the features, projected, the partial projections all-reduced, then
+    the biases."""
     obj_feats = obj_feats.float()
-    return linear(ip["fc"], obj_feats), linear(ip["fc_vis"], obj_feats)
+    if mp is None:
+        return linear(ip["fc"], obj_feats), linear(ip["fc_vis"], obj_feats)
+    x = mp_slice(obj_feats, mp)
+    return tuple(reduce_from_mp(x @ ip[k]["w"].T, mp) + ip[k]["b"]
+                 for k in ("fc", "fc_vis"))
 
 
 def leaf_transform(cfg: ModelConfig, dp, x_span: torch.Tensor,
@@ -100,7 +114,8 @@ def diora_forward(cfg: ModelConfig, params, x_span: torch.Tensor,
                   outside: Optional[bool] = None,
                   with_all_atten: bool = True,
                   materialize_atten: bool = True,
-                  lengths: Optional[torch.Tensor] = None) -> DioraOutput:
+                  lengths: Optional[torch.Tensor] = None,
+                  mp=None) -> DioraOutput:
     """Run the full inside-outside recursion (+ CLIORA attention scores).
 
     Args:
@@ -116,6 +131,8 @@ def diora_forward(cfg: ModelConfig, params, x_span: torch.Tensor,
         the fused span x region reductions (ops/span_region.py) compute
         the losses from the chart instead.
       lengths: (B,) true sentence lengths for padded length buckets.
+      mp: the mesh whose mp group cuts the compose and score weights on
+        D (parallel/sharding.py ``TensorParallel.hidden``), or None.
     """
     dp = params["diora"]
     run_outside = cfg.outside if outside is None else outside
@@ -124,7 +141,7 @@ def diora_forward(cfg: ModelConfig, params, x_span: torch.Tensor,
                             generator=generator, train=train)
     chart = run_chart(cfg, dp, h0, c0=c0, obj=obj_span, generator=generator,
                       train=train, with_cky=with_cky, outside=run_outside,
-                      lengths=lengths)
+                      lengths=lengths, mp=mp)
 
     if not cfg.use_obj or (train and not materialize_atten):
         return DioraOutput(chart, None, None, None)

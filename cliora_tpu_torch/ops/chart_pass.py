@@ -22,6 +22,20 @@ normalized the same way; the mlp arch has none.  With ``cfg.remat`` a
 level's block runs under ``torch.utils.checkpoint``: its (B, rows, D)
 intermediates are recomputed in the backward instead of stored
 (:func:`remat_enabled`, :func:`_remat_level`, ``cfg.remat_policy``).
+
+Tensor parallel (``mp``: the compose's ``fc0``/``fc1`` and the score
+matrix cut on D over an mp group, parallel/sharding.py): the chart
+stays whole on every rank, and only the gathered children's compose and
+score are sharded work, each ending in one all-reduce.  Where a child's
+gradient comes back from that work it is a partial sum on each rank,
+which must be all-reduced (``copy_to_mp``).  The mlp arch does that once
+per chart level, on the level's output as the gathers read it, not on
+the gathered pairs: at n = 20 the pairs are (n^3 - n)/6 = 1,330 rows of
+2D a pass against 210 cells of D for the whole inside chart, and the
+level's output feeds the sharded work through that copy only (its
+replicated readers take the plain tensor).  The TreeLSTM's compose
+stays replicated, so there the score's inputs alone are copied, per
+pair.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from cliora_tpu_torch.ops.core import (
     normalize,
     region_attention,
 )
+from cliora_tpu_torch.parallel.sharding import copy_to_mp
 
 MASK_NEG = -1e9  # finite -inf stand-in: keeps masked-softmax grads NaN-free
 
@@ -177,22 +192,38 @@ def _aggregate_weights(cfg: ModelConfig, s, dim: int):
     return torch.softmax(s, dim=dim)
 
 
-def _compose(cfg: ModelConfig, cp, lh, rh, lc, rc):
+def _compose(cfg: ModelConfig, cp, lh, rh, lc, rc, mp=None):
     """``(h, c)`` of a compose: the TreeLSTM's f32 pair, or the mlp's h
     in the chart dtype and no c."""
     cdt = compute_dtype(cfg)
     if cfg.arch == "treelstm":
         return compose_treelstm(cp, (lh, lc), (rh, rc), compute_dtype=cdt)
-    return compose_mlp(cp, lh, rh, compute_dtype=cdt, out_dtype=cdt), None
+    return compose_mlp(cp, lh, rh, compute_dtype=cdt, out_dtype=cdt,
+                       mp=mp), None
+
+
+def _copies_levels(cfg: ModelConfig, mp) -> bool:
+    """Whether a pass marks each chart level with ``copy_to_mp`` (an mlp
+    chart under tensor parallelism: every reader of the gathered children
+    is sharded work), rather than each score's inputs."""
+    return mp is not None and cfg.arch == "mlp"
+
+
+def _score(cfg: ModelConfig, mat, left, right, mp):
+    """The bilinear split scores of gathered children (B, rows) f32."""
+    if mp is not None and not _copies_levels(cfg, mp):
+        left, right = copy_to_mp(left, mp), copy_to_mp(right, mp)
+    return bilinear(mat, left, right, compute_dtype=compute_dtype(cfg), mp=mp)
 
 
 def inside_pass(cfg: ModelConfig, dp, h0: torch.Tensor,
                 c0: Optional[torch.Tensor] = None, obj=None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False, with_cky: bool = False):
+                train: bool = False, with_cky: bool = False, mp=None):
     """Bottom-up pass.  ``h0``: (B, n, D) normalized leaf vectors; ``c0``:
     the TreeLSTM leaf cells (zero when ``None``); ``obj``: (B, R, D)
-    region embeddings of a CLIORA model.
+    region embeddings of a CLIORA model; ``mp``: the tensor-parallel mesh
+    of the compose and score weights, or None.
 
     Returns ``(inside_h, inside_s, inside_c, cky_bp, cky_val)``: the h
     chart (B, ncells, D) in the compute dtype, scores (B, ncells, 1) f32,
@@ -209,6 +240,9 @@ def inside_pass(cfg: ModelConfig, dp, h0: torch.Tensor,
 
     # h (and c) chart in the compute dtype; scores and softmaxes stay f32
     hs = [h0.to(cdt)]
+    # the chart as the children's gathers read it
+    copies = _copies_levels(cfg, mp)
+    hs_read = [copy_to_mp(hs[0], mp) if copies else hs[0]]
     ss = [torch.zeros((B, n), dtype=torch.float32, device=dev)]
     cs = None
     if use_c:
@@ -233,9 +267,9 @@ def inside_pass(cfg: ModelConfig, dp, h0: torch.Tensor,
             if use_c:
                 chart_c = torch.cat(cs, 1)
                 lc, rc = chart_c[:, idx_l], chart_c[:, idx_r]
-            h, c = _compose(cfg, cp, lh, rh, lc, rc)
+            h, c = _compose(cfg, cp, lh, rh, lc, rc, mp)
 
-            s_bil = bilinear(mat, lh, rh, compute_dtype=cdt)   # (B, L*N)
+            s_bil = _score(cfg, mat, lh, rh, mp)            # (B, L*N)
             s = (s_bil + chart_s[:, idx_l] + chart_s[:, idx_r]
                  ).reshape(B, L, N)
             p = _aggregate_weights(cfg, s, -1)          # over splits
@@ -263,9 +297,10 @@ def inside_pass(cfg: ModelConfig, dp, h0: torch.Tensor,
                                 cfg.attn_dropout, dev)
         h_agg, s_agg, c_agg, s = _run_level(
             cfg, _remat_level(cfg, do_remat, L * N, (n // 2) * (n - n // 2)),
-            level_step, tuple(hs), tuple(ss),
+            level_step, tuple(hs_read), tuple(ss),
             None if cs is None else tuple(cs), obj, keep)
         hs.append(h_agg.to(cdt))
+        hs_read.append(copy_to_mp(hs[-1], mp) if copies else hs[-1])
         ss.append(s_agg)
         if use_c:
             cs.append(c_agg.to(cdt))
@@ -312,7 +347,7 @@ def _outside_masks(level: int, n: int, lengths: torch.Tensor):
 def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
                  inside_s: torch.Tensor,
                  inside_c: Optional[torch.Tensor] = None,
-                 lengths: Optional[torch.Tensor] = None):
+                 lengths: Optional[torch.Tensor] = None, mp=None):
     """Top-down pass mirroring :func:`inside_pass`.
 
     Parent states come from the *outside* chart, sibling states from the
@@ -326,7 +361,8 @@ def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
     whose parent leaves ``[0, m)`` are masked out of the combo softmax,
     and invalid and root cells keep their prior values.  Returns
     ``(outside_h, outside_s, outside_c)``; ``outside_c`` is the TreeLSTM
-    c chart (zero at the root), ``None`` for mlp.
+    c chart (zero at the root), ``None`` for mlp.  ``mp``: as in
+    :func:`inside_pass`.
     """
     B, NC, D = inside_h.shape
     n = int(round(((8 * NC + 1) ** 0.5 - 1) / 2))      # invert ncells
@@ -364,6 +400,11 @@ def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
     zero_c = (torch.zeros((B, 1, D), dtype=cdt, device=dev) if use_c
               else None)
     levels = [None] * n
+    # each level's h as the parents' gathers read it, and the inside chart
+    # as the siblings' gathers read it
+    copies = _copies_levels(cfg, mp)
+    read_h = [None] * n
+    inside_read = copy_to_mp(inside_h, mp) if copies else inside_h
     root_level = None
     if lengths is None:
         levels[n - 1] = (root_h[:, None], zero_s, zero_c)
@@ -389,13 +430,13 @@ def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
                        base=base, level=level, L=L, N=N):
             par = par_idx - base
             ph = _take_children(torch.cat(above_h, 1), par)   # (B, N*L, D)
-            sh = _take_children(inside_h, sis_idx)
+            sh = _take_children(inside_read, sis_idx)
             pc = sc = None
             if use_c:
                 pc, sc = torch.cat(above_c, 1)[:, par], inside_c[:, sis_idx]
-            h, c = _compose(cfg, cp, sh, ph, sc, pc)
+            h, c = _compose(cfg, cp, sh, ph, sc, pc, mp)
 
-            s_bil = bilinear(mat, sh, ph, compute_dtype=cdt)  # (B, N*L)
+            s_bil = _score(cfg, mat, sh, ph, mp)            # (B, N*L)
             s = (s_bil + inside_s[:, sis_idx, 0]
                  + torch.cat(above_s, 1)[:, par]).reshape(B, N, L)
             if lengths is not None:
@@ -426,9 +467,11 @@ def outside_pass(cfg: ModelConfig, dp, inside_h: torch.Tensor,
             return h_agg, s_agg, c_agg
 
         above = levels[level + 1:]
+        read_h[level + 1] = (copy_to_mp(above[0][0], mp) if copies
+                             else above[0][0])
         levels[level] = _run_level(
             cfg, _remat_level(cfg, do_remat, N * L, n * (n - 1)),
-            level_step, tuple(lv[0] for lv in above),
+            level_step, tuple(read_h[level + 1:]),
             tuple(lv[1] for lv in above),
             tuple(lv[2] for lv in above) if use_c else None,
             inside_h, inside_s, inside_c, root_h)
@@ -444,18 +487,19 @@ def run_chart(cfg: ModelConfig, dp, h0: torch.Tensor,
               generator: Optional[torch.Generator] = None,
               train: bool = False, with_cky: bool = False,
               outside: bool = True,
-              lengths: Optional[torch.Tensor] = None) -> InsideOut:
+              lengths: Optional[torch.Tensor] = None, mp=None) -> InsideOut:
     """Inside pass (+ CKY) and, with ``outside``, the outside pass.
 
     Padded length buckets need no inside mask: inside values of valid
-    cells depend only on valid cells.
+    cells depend only on valid cells.  ``mp``: as in :func:`inside_pass`.
     """
     inside_h, inside_s, inside_c, bp, val = inside_pass(
         cfg, dp, h0, c0=c0, obj=obj, generator=generator, train=train,
-        with_cky=with_cky)
+        with_cky=with_cky, mp=mp)
     outside_h = outside_s = outside_c = None
     if outside:
         outside_h, outside_s, outside_c = outside_pass(
-            cfg, dp, inside_h, inside_s, inside_c=inside_c, lengths=lengths)
+            cfg, dp, inside_h, inside_s, inside_c=inside_c, lengths=lengths,
+            mp=mp)
     return InsideOut(inside_h, inside_s, inside_c, outside_h, outside_s,
                      outside_c, bp, val)

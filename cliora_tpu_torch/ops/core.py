@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from cliora_tpu_torch.parallel.sharding import mp_slice, reduce_from_mp
+
 TINY = 1e-8
 
 
@@ -54,18 +56,32 @@ def _cast(p, dtype):
 
 
 def compose_mlp(cp, left_h, right_h, compute_dtype=torch.float32,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32, mp=None) -> torch.Tensor:
     """Two-layer ReLU MLP over the concatenated children.
 
     ``h = relu(W2 relu(W1 [l; r] + b1) + b2)``
     (reference: cliora/net/diora.py:35-40,65-72).  Both layers run in
     ``compute_dtype``; callers that keep their charts in the compute
     dtype pass it as ``out_dtype`` too.
+
+    Tensor parallel (``mp``, the mesh whose mp group holds ``fc0``'s
+    rows and ``fc1``'s columns; parallel/sharding.py): the rank's block
+    of the hidden layer, ``fc1``'s partial product over it accumulated
+    and kept in f32, one all-reduce of the partials, then ``b2`` and the
+    relu in the compute dtype -- GSPMD's one psum per compose
+    (cliora_tpu/ops/core.py:9-13).  The children must come through
+    ``copy_to_mp`` (the chart pass marks each level once).
     """
     x = torch.cat([left_h, right_h], dim=-1).to(compute_dtype)
     h = torch.relu(linear(_cast(cp["fc0"], compute_dtype), x))
-    h = torch.relu(linear(_cast(cp["fc1"], compute_dtype), h))
-    return h.to(out_dtype)
+    if mp is None:
+        h = torch.relu(linear(_cast(cp["fc1"], compute_dtype), h))
+        return h.to(out_dtype)
+    part = lowp_einsum("ni,oi->no", h.reshape(-1, h.shape[-1]),
+                       cp["fc1"]["w"], compute_dtype, torch.float32)
+    h = (reduce_from_mp(part, mp).to(compute_dtype)
+         + cp["fc1"]["b"].to(compute_dtype))
+    return torch.relu(h).reshape(x.shape[:-1] + (-1,)).to(out_dtype)
 
 
 def einsum_acc(pattern: str, x: torch.Tensor, y: torch.Tensor,
@@ -141,7 +157,8 @@ def lowp_einsum(pattern: str, x: torch.Tensor, y: torch.Tensor,
     return _LowpEinsum.apply(pattern, x, y, compute_dtype, out_dtype)
 
 
-def bilinear(mat, a, b, compute_dtype=torch.float32) -> torch.Tensor:
+def bilinear(mat, a, b, compute_dtype=torch.float32, mp=None
+             ) -> torch.Tensor:
     """Split-compatibility score ``s = a^T M b`` per row, f32 out.
 
     The intermediate ``a @ M`` projection is *stored* in the compute
@@ -149,9 +166,17 @@ def bilinear(mat, a, b, compute_dtype=torch.float32) -> torch.Tensor:
     operands and accumulates in f32; the backward stays in the compute
     dtype (``lowp_einsum``).  (reference: cliora/net/diora.py:77-97
     ``Bilinear``)
+
+    Tensor parallel (``mp``: ``mat``'s columns cut over its mp group):
+    ``(a @ mat[:, shard]) . b[..., shard]``, then one all-reduce of the
+    partial scores.  ``a`` and ``b`` must come through ``copy_to_mp``.
     """
     am = lowp_einsum("...me,ed->...md", a, mat, compute_dtype, compute_dtype)
-    return lowp_einsum("...md,...md->...m", am, b, compute_dtype)
+    if mp is None:
+        return lowp_einsum("...md,...md->...m", am, b, compute_dtype)
+    part = lowp_einsum("...md,...md->...m", am, mp_slice(b, mp),
+                       compute_dtype)
+    return reduce_from_mp(part, mp)
 
 
 class RankRows(NamedTuple):

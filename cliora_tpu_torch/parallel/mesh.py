@@ -26,6 +26,18 @@ Their backwards differ because the first copies one value to every rank
 (each copy feeds a different rank's loss share, so the gradients add up),
 while the second adds every rank's value into one (each rank's value
 gets the sum's whole gradient).
+
+Tensor parallelism (``mp > 1``, parallel/sharding.py) makes the world a
+``dp x mp`` grid with ``mp`` the minor axis, rank ``d * mp + m``, as the
+JAX ``make_mesh`` lays out its devices (cliora_tpu/parallel/mesh.py:
+32-47), so that the model-parallel collectives run between neighbouring
+cards.  ``Mesh`` then names the rank's dp group (the ranks of its ``m``)
+in ``size``/``rank``/``group`` and its mp group (the ranks of its ``d``)
+in ``mp``/``mp_rank``/``mp_group``; everything above that works on the
+batch sees the dp group only, so the ``mp`` ranks of one dp row hold the
+same rows, draw the same dropout masks and share the negative samples.
+The JAX package refuses ``mp`` across processes; here across processes
+is the only form it takes, one rank a card.
 """
 
 from __future__ import annotations
@@ -41,35 +53,65 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A data-parallel group: ``size`` ranks, this process's ``rank``,
-    the process group (``None``: the default one) and its backend."""
+    the process group (``None``: the default one) and its backend; under
+    tensor parallelism also the model-parallel group: ``mp`` ranks, this
+    process's ``mp_rank`` and ``mp_group``."""
     size: int
     rank: int
     backend: str
     group: Optional[Any] = None
+    mp: int = 1
+    mp_rank: int = 0
+    mp_group: Optional[Any] = None
 
 
-def make_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """The dp group over the whole world of an initialized process group
-    (parallel/multihost.py).  ``n_devices`` must equal the world size:
-    one process drives one card, so JAX's ``--n_devices 8`` in one
-    process becomes eight ranks.  The JAX ``mp`` axis (tensor
-    parallelism) is not ported (ROADMAP A8)."""
+def make_mesh(n_devices: Optional[int] = None, mp: int = 1) -> Mesh:
+    """The ``dp x mp`` grid over the whole world of an initialized process
+    group (parallel/multihost.py), ``dp = world / mp``.  ``n_devices``
+    must equal the world size: one process drives one card, so JAX's
+    ``--n_devices 8`` in one process becomes eight ranks.  Every rank must
+    call it, in the same order as the other ranks' calls: the dp and mp
+    groups are made here (``dist.new_group``)."""
     if not dist.is_initialized():
-        if n_devices not in (None, 1):
+        asked = [f"{name}={n}" for name, n in
+                 (("n_devices", n_devices), ("mp", mp)) if (n or 1) > 1]
+        if asked:
             raise ValueError(
-                f"n_devices={n_devices} needs one process a card: launch "
+                f"{' and '.join(asked)} needs one process a card: launch "
                 f"`python -m torch.distributed.run --nproc_per_node "
-                f"{n_devices} -m cliora_tpu_torch.scripts.train ...` (or "
-                f"pass --world_size/--master_addr/--master_port/"
-                f"--local_rank to each process)")
+                f"{max(n_devices or 1, mp)} -m cliora_tpu_torch.scripts."
+                f"train ...` (or pass --world_size/--master_addr/"
+                f"--master_port/--local_rank to each process)")
         raise ValueError("make_mesh needs an initialized process group "
                          "(parallel/multihost.py initialize_multihost)")
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"n_devices={n_devices} != world size {world}: "
                          f"the port runs one rank a card")
-    return Mesh(size=world, rank=dist.get_rank(),
-                backend=str(dist.get_backend()))
+    if mp < 1 or world % mp:
+        raise ValueError(f"world size {world} is not divisible by mp={mp}")
+    rank, backend = dist.get_rank(), str(dist.get_backend())
+    if mp == 1:
+        return Mesh(size=world, rank=rank, backend=backend)
+    dp = world // mp
+    d, m = divmod(rank, mp)
+    dp_groups = [_new_group([e * mp + j for e in range(dp)], backend)
+                 for j in range(mp)]
+    mp_groups = [_new_group([e * mp + j for j in range(mp)], backend)
+                 for e in range(dp)]
+    return Mesh(size=dp, rank=d, backend=backend, group=dp_groups[m],
+                mp=mp, mp_rank=m, mp_group=mp_groups[d])
+
+
+def _new_group(ranks, backend):
+    """``dist.new_group(ranks)``, made by every rank; under NCCL the
+    members make its communicator at once with one all-reduce (a CUDA
+    graph captures collectives only on a communicator that exists)."""
+    group = dist.new_group(ranks)
+    if backend == "nccl" and dist.get_rank() in ranks:
+        dist.all_reduce(torch.zeros(1, device=torch.device(
+            "cuda", torch.cuda.current_device())), group=group)
+    return group
 
 
 def dp_size(mesh: Optional[Mesh]) -> int:
@@ -123,12 +165,15 @@ def shard_batch(mesh: Optional[Mesh], tree, on_indivisible: str = "error"):
 
 
 def replicate_tree(mesh: Optional[Mesh], tensors):
-    """Rank 0's values into every rank's tensors, in place (a broadcast
-    per tensor); returns ``tensors``.  Ranks build their state from one
+    """The dp group's first rank's values into every rank's tensors, in
+    place (a broadcast per tensor over the dp group); returns
+    ``tensors``.  Ranks build their state from one
     seed or one checkpoint, so this only guards against drift."""
     if mesh is not None:
+        src = (0 if mesh.group is None
+               else dist.get_global_rank(mesh.group, 0))
         for t in tensors:
-            dist.broadcast(t.detach(), src=0, group=mesh.group)
+            dist.broadcast(t.detach(), src=src, group=mesh.group)
     return tensors
 
 

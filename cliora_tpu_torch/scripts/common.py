@@ -14,6 +14,7 @@ experiment json.
 from __future__ import annotations
 
 import glob
+import math
 import os
 import re
 
@@ -25,7 +26,6 @@ from cliora_tpu_torch.data.dataset import (
     make_batch_iterator,
 )
 from cliora_tpu_torch.models.config import ModelConfig
-from cliora_tpu_torch.models.params import param_count
 from cliora_tpu_torch.training.checkpoint import (
     import_torch_checkpoint,
     load_opt_state,
@@ -100,7 +100,7 @@ def build_trainer(options, embeddings, mesh=None) -> Trainer:
                 # cold start (first run after scheduling): train fresh
                 logger.info("--resume auto: no checkpoint found; "
                             "starting fresh")
-                logger.info(f"# of params = {param_count(trainer.params)}")
+                logger.info(f"# of params = {_param_count(trainer)}")
                 return trainer
         logger.info(f"Resuming from: {options.resume}")
         if is_ckpt_dir(options.resume):
@@ -108,7 +108,8 @@ def build_trainer(options, embeddings, mesh=None) -> Trainer:
             # (training/dist_ckpt.py)
             restore_state(options.resume, trainer)
         else:
-            params, missing = load_params(options.resume, trainer.params)
+            params, missing = load_params(options.resume,
+                                          trainer.full_params())
             if missing:
                 raise ValueError(f"{options.resume}: no {missing}")
             opt_state = load_opt_state(options.resume.replace(".npz",
@@ -119,25 +120,32 @@ def build_trainer(options, embeddings, mesh=None) -> Trainer:
         rst = resume_state(options)
         if rst and "host_step" in rst:
             trainer.set_step(int(rst["host_step"]))
-        logger.info(f"# of params = {param_count(trainer.params)}")
+        logger.info(f"# of params = {_param_count(trainer)}")
         return trainer
 
     if options.load_model_path:
         logger.info(f"Loading model: {options.load_model_path}")
         load_embeddings = options.emb == "none"
+        # whole tensors (gathered under --mp): the template's values stand
+        # in for what the file lacks
+        template = trainer.full_params()
         if options.load_model_path.endswith((".pt", ".pth")):
             params, missing = import_torch_checkpoint(
-                options.load_model_path, trainer.params,
+                options.load_model_path, template,
                 load_embeddings=load_embeddings)
         else:
-            params, missing = load_params(options.load_model_path,
-                                          trainer.params)
+            params, missing = load_params(options.load_model_path, template)
         for k in missing:
             logger.info(f"Not initialized from checkpoint: {k}")
         trainer.install_state(params)
 
-    logger.info(f"# of params = {param_count(trainer.params)}")
+    logger.info(f"# of params = {_param_count(trainer)}")
     return trainer
+
+
+def _param_count(trainer) -> int:
+    """The whole model's parameter count (under --mp, not the rank's)."""
+    return sum(math.prod(s) for s in trainer.full_shapes.values())
 
 
 def resume_state(options):

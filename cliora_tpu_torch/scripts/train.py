@@ -25,6 +25,11 @@ batch (``--batch_size`` is the global batch), evaluates its share of the
 validation batches, and takes part in ``--ckpt_backend orbax``'s
 sharded saves; the chief writes the ``.npz`` / ``.pt`` / ``.opt.pkl``
 files and the experiment json.
+
+Tensor parallelism: ``--mp M`` cuts the weights over groups of M
+neighbouring ranks (parallel/sharding.py), so ``--nproc_per_node`` is
+``dp * M``, one card a rank; the batch is chunked over the dp rows and
+the checkpoints hold whole tensors, gathered before the chief writes.
 """
 
 from __future__ import annotations
@@ -149,7 +154,7 @@ def _barrier(trainer):
     """Keep the ranks in step at an epoch's end, so that none runs ahead
     of the chief's checkpoint into the next epoch's collectives."""
     if trainer.mesh is not None:
-        dist.barrier(group=trainer.mesh.group)
+        dist.barrier()
 
 
 def run_train(options, train_iterator, trainer, validation_iterator):
@@ -241,13 +246,14 @@ def run_train(options, train_iterator, trainer, validation_iterator):
             if saver is not None:
                 saver.save(base + ".dcp", trainer)
             else:
-                # on every rank: under --zero1 the gather of Adam's
-                # state is a collective
+                # on every rank: under --zero1 and --mp the gathers of
+                # Adam's state and of the cut weights are collectives
                 opt_state = trainer.opt_state()
+                params = trainer.full_params()
                 if chief:
-                    save_params(base + ".npz", trainer.params,
+                    save_params(base + ".npz", params,
                                 save_embeddings=save_emb)
-                    export_torch_checkpoint(base + ".pt", trainer.params,
+                    export_torch_checkpoint(base + ".pt", params,
                                             save_embeddings=save_emb)
                     save_opt_state(base + ".opt.pkl", opt_state)
             if chief:
@@ -276,14 +282,16 @@ def run_train(options, train_iterator, trainer, validation_iterator):
                     epoch=epoch, host_step=trainer._host_step,
                     seed=options.seed, best_f1=best_f1,
                     best_epoch=best_epoch)
+            params = (trainer.full_params() if best_epoch == epoch
+                      else None)
             if chief and best_epoch == epoch:
                 # keep-best checkpoint (the reference keeps only
                 # per-epoch files, cliora/scripts/train.py:105-107)
                 best = os.path.join(options.experiment_path, "model.best")
-                save_params(best + ".npz", trainer.params,
+                save_params(best + ".npz", params,
                             save_embeddings=save_emb,
                             extra={"epoch": epoch, "corpus_f1": corpus_f1})
-                export_torch_checkpoint(best + ".pt", trainer.params,
+                export_torch_checkpoint(best + ".pt", params,
                                         save_embeddings=save_emb)
             logger.info(
                 f"epoch={epoch} corpus_f1={corpus_f1:.4f} "
@@ -386,10 +394,11 @@ def run(options, region_features=None):
 
     logger.info("Initializing model.")
     # one rank a card: --n_devices must be the world size, and more than
-    # one device without a group raises naming the launch command
-    mesh = (make_mesh(options.n_devices)
+    # one device (or --mp > 1) without a group raises naming the launch
+    # command (cliora_tpu/scripts/train.py:352-363)
+    mesh = (make_mesh(options.n_devices, mp=options.mp)
             if dist.is_initialized() or (options.n_devices or 1) > 1
-            else None)
+            or options.mp > 1 else None)
     trainer = build_trainer(options, embeddings, mesh=mesh)
     return trainer, run_train(options, train_iterator, trainer,
                               validation_iterator)

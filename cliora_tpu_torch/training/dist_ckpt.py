@@ -20,6 +20,15 @@ A restore reads the flat vectors at whatever layout the restoring
 trainer has, so a checkpoint written at one world size restores at
 another.  Saves and restores are collectives: every rank calls them.
 
+Under tensor parallelism (``mp > 1``) the state is first gathered into
+whole tensors (the parameters over the mp group, Adam's moments over the
+dp and mp groups) and written as a trainer without a group writes it,
+the first rank writing the one copy: a rank's slice of a parameter cut
+on its second dim is no contiguous piece of the flat vectors.  The
+directory is then the one-process layout, and restores at any
+``(dp, mp)``, as the JAX package's Orbax checkpoints of ``--mp`` runs
+do (cliora_tpu/training/orbax_ckpt.py).
+
 The state is copied to host memory before a save returns (a blocking
 device-to-host copy, ordered after the steps before it), so the next
 step or graph replay may write the parameters in place at once; DCP's
@@ -30,6 +39,7 @@ collectives (the ``AsyncSaver`` discipline of orbax_ckpt.py:80-115).
 
 from __future__ import annotations
 
+import math
 import os
 from concurrent.futures import Future
 from typing import Optional
@@ -54,12 +64,20 @@ def _cpu_group():
     return dist.new_group(backend="gloo")
 
 
+def _sizes(trainer):
+    """The whole element count of each trainable parameter, in order."""
+    return [math.prod(trainer.full_shapes[k]) for k, _ in trainer._trainable()]
+
+
 def _flat_len(trainer) -> int:
-    return sum(p.numel() for p in trainer.trainable_params())
+    return sum(_sizes(trainer))
 
 
 def _sharded(trainer) -> bool:
-    return trainer.zero1 is not None and trainer.zero1.size > 1
+    """Whether each rank writes its own slice of Adam's state (ZeRO-1 on
+    more than one rank, without tensor parallelism)."""
+    return (trainer.zero1 is not None and trainer.zero1.size > 1
+            and trainer._mp() == 1)
 
 
 def _opt_vector(trainer, local: torch.Tensor, group):
@@ -85,9 +103,17 @@ def _staged_state(trainer, group) -> dict:
     """The trainer's state copied to host memory, as DCP saves it."""
     from cliora_tpu_torch.training.trainer import tree_leaves, tree_paths
 
+    params = trainer.full_params()
     state = {f"params/{k}": _host(p) for k, p in
-             zip(tree_paths(trainer.params), tree_leaves(trainer.params))}
-    if trainer.zero1 is not None:
+             zip(tree_paths(params), tree_leaves(params))}
+    if trainer._mp() > 1:
+        opt = trainer.opt_state()       # whole moments: a collective
+        for name in ("mu", "nu"):
+            state[f"opt/{name}"] = torch.cat([
+                torch.from_numpy(opt[name][k]).reshape(-1)
+                for k, _ in trainer._trainable()])
+        count = opt["count"]
+    elif trainer.zero1 is not None:
         st = trainer.zero1.state
         for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
             local = _host(st[key][:trainer.zero1.valid_len])
@@ -110,7 +136,8 @@ def _template(trainer, group) -> dict:
     into at this trainer's layout."""
     from cliora_tpu_torch.training.trainer import tree_leaves, tree_paths
 
-    state = {f"params/{k}": torch.empty(p.shape, dtype=p.dtype)
+    state = {f"params/{k}": torch.empty(trainer.full_shapes[k],
+                                        dtype=p.dtype)
              for k, p in zip(tree_paths(trainer.params),
                              tree_leaves(trainer.params))}
     n = _flat_len(trainer)
@@ -147,19 +174,18 @@ def restore_state(path: str, trainer) -> None:
     trainer.install_state(params={
         k: state[f"params/{k}"] for k in tree_paths(trainer.params)})
     mu, nu = state["opt/mu"], state["opt/nu"]
-    if trainer.zero1 is not None:
-        if _sharded(trainer):
-            mu, nu = mu.to_local(), nu.to_local()
-        trainer.zero1.install_local(count, mu, nu)
+    if _sharded(trainer):
+        trainer.zero1.install_local(count, mu.to_local(), nu.to_local())
     else:
-        sizes = [p.numel() for p in trainer.trainable_params()]
+        # whole moments; the trainer keeps its slices of them
         paths = [k for k, _ in trainer._trainable()]
+        sizes = _sizes(trainer)
         trainer.install_state(opt_state={
             "count": count,
-            "mu": {k: m.view(p.shape) for k, m, p in zip(
-                paths, mu.split(sizes), trainer.trainable_params())},
-            "nu": {k: v.view(p.shape) for k, v, p in zip(
-                paths, nu.split(sizes), trainer.trainable_params())}})
+            "mu": {k: m.view(trainer.full_shapes[k]) for k, m in zip(
+                paths, mu.split(sizes))},
+            "nu": {k: v.view(trainer.full_shapes[k]) for k, v in zip(
+                paths, nu.split(sizes))}})
     trainer.set_step(int(state["host_step"]))
 
 

@@ -29,6 +29,7 @@ from cliora_tpu_torch.parallel.mesh import (
     gather_rows,
     scatter_sum_rows,
 )
+from cliora_tpu_torch.parallel.sharding import reduce_from_mp
 
 MIN_VAL = 1e-8
 
@@ -72,7 +73,8 @@ def root_cell_index(n: int, lengths: torch.Tensor) -> torch.Tensor:
 
 def reconstruction_loss(recon_params, embed_table: torch.Tensor,
                         tokens: torch.Tensor, neg_samples: torch.Tensor,
-                        outside_h: torch.Tensor, lengths=None, mesh=None):
+                        outside_h: torch.Tensor, lengths=None, mesh=None,
+                        mp=None):
     """Masked-word reconstruction with sampled-softmax CE.
 
     Each leaf's *outside* vector must prefer the true word over ``k``
@@ -88,13 +90,21 @@ def reconstruction_loss(recon_params, embed_table: torch.Tensor,
       lengths: (B,) true lengths for padded buckets; pad positions are
         excluded from the mean.
       mesh: the dp group; the mean is then over the global batch.
+      mp: the tensor-parallel mesh that cuts the table and ``mat`` on E:
+        each rank projects its E slice of the rows and the partial
+        projections are all-reduced before the scores.  (Reducing the
+        projections moves (B L + k) D numbers and nothing in the
+        backward; reducing the partial scores would move B L (1 + k)
+        and then the outside leaves' gradient, B L D, in the backward.)
     """
     B, L = tokens.shape
     mat = recon_params["mat"]
     # a bf16 chart against f32 projections: f32, as JAX promotes
     cell = outside_h[:, :L].float()                       # (B, L, D)
-    proj_pos = table_rows(embed_table, tokens) @ mat.T    # (B, L, D)
-    proj_neg = table_rows(embed_table, neg_samples) @ mat.T   # (k, D)
+    proj_pos = reduce_from_mp(table_rows(embed_table, tokens) @ mat.T,
+                              mp)                         # (B, L, D)
+    proj_neg = reduce_from_mp(table_rows(embed_table, neg_samples) @ mat.T,
+                              mp)                         # (k, D)
 
     xp = torch.einsum("bld,bld->bl", proj_pos, cell)[..., None]  # (B, L, 1)
     xn = torch.einsum("kd,bld->blk", proj_neg, cell)             # (B, L, k)

@@ -27,6 +27,17 @@ gradient comes between backward and the clip, and the metrics are the
 global losses.  ``TrainConfig.zero1`` shards Adam's state over the group
 (parallel/sharding.py).  Under ``Trainer.steps`` on the card the
 collectives run inside the captured graph (NCCL).
+
+With a mesh of ``mp > 1`` (tensor parallelism, parallel/sharding.py)
+the trainer holds the rank's slices of the cut weights: the forward
+passes run the sharded compose, scores, embed, image encoder and
+reconstruction projections (:class:`TensorParallel`), the clip norm
+sums the cut parameters' squares over the mp group, Adam (or ZeRO-1,
+over the dp group) updates the slices, and :meth:`opt_state`,
+:meth:`full_params` and :meth:`install_state` speak in whole tensors,
+so checkpoints are those of a run without a group.  The span x region
+kernels K2-K4 take whole vectors on every rank and keep running; the
+parse takes the plain route, as under the JAX package's mp gating.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.diora import (
@@ -59,7 +71,17 @@ from cliora_tpu_torch.parallel.mesh import (
     gather_rows,
     replicate_tree,
 )
-from cliora_tpu_torch.parallel.sharding import Zero1
+from cliora_tpu_torch.parallel.sharding import (
+    NO_TP,
+    TensorParallel,
+    Zero1,
+    gather_mp,
+    gather_params,
+    mp_slice,
+    shard_dims,
+    shard_params,
+    tensor_parallel,
+)
 from cliora_tpu_torch.training.losses import (
     contrastive_loss,
     contrastive_loss_from_scores,
@@ -155,14 +177,28 @@ def tree_paths(tree, prefix: str = "") -> List[str]:
     return [prefix[:-1]]
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        cut: Optional[List[bool]] = None, mesh=None):
     """``g * max_norm / norm`` for every gradient when the global norm is
     at least ``max_norm``, else ``g`` -- ``optax.clip_by_global_norm``'s
     rule (divide by the norm, then multiply), computed on the device with
     no host sync.  (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
     norm and scales below it too, so it would not match.)  Returns
-    ``(clipped grads, norm)``."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    ``(clipped grads, norm)``.
+
+    Under tensor parallelism (``mesh`` with ``mp > 1``) ``cut`` flags the
+    gradients that are the rank's slices of a cut parameter: their
+    squares are summed over the mp group, the replicated ones counted
+    once."""
+    if mesh is None or mesh.mp == 1 or not any(cut or ()):
+        sq = sum(torch.sum(torch.square(g)) for g in grads)
+    else:
+        zero = grads[0].new_zeros(())
+        parts = [torch.sum(torch.square(g)) for g in grads]
+        cut_sq = sum((x for x, c in zip(parts, cut) if c), zero)
+        dist.all_reduce(cut_sq, group=mesh.mp_group)
+        sq = sum((x for x, c in zip(parts, cut) if not c), zero) + cut_sq
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm * max_norm) for g in grads], norm
 
@@ -197,28 +233,30 @@ def forward_outputs(cfg: ModelConfig, tc: TrainConfig, params,
                     tokens: torch.Tensor, obj_feats=None,
                     generator: Optional[torch.Generator] = None,
                     train: bool = True, with_cky: bool = False,
-                    outside=None, lengths=None, mesh=None):
+                    outside=None, lengths=None, mesh=None,
+                    tp: TensorParallel = NO_TP):
     """Embed -> image-encode -> diora forward (reference: Net.forward,
     cliora/net/trainer.py:272-304).
 
     Returns ``(out, aux)``; aux carries the embedding and region vectors
     the fused-score losses need.  Under a dp ``mesh`` the batch x batch
     scores are left to :func:`losses_from`, which scores the rank's
-    texts against every rank's images.
+    texts against every rank's images.  ``tp``: the tensor-parallel
+    split of the weights (parallel/sharding.py), whole without one.
     """
     x_span, x_word = embed_forward(params["embed"], tokens,
-                                   trainable=tc.emb_trainable)
+                                   trainable=tc.emb_trainable, mp=tp.embed)
     obj_span = obj_word = None
     if cfg.use_obj:
-        obj_span, obj_word = image_encoder_forward(params["img_encoder"],
-                                                   obj_feats)
+        obj_span, obj_word = image_encoder_forward(
+            params["img_encoder"], obj_feats, mp=tp.regions)
     need_all_atten = cfg.use_obj and (tc.use_contr or not train)
     out = diora_forward(
         cfg, params, x_span, x_word, obj_span=obj_span, obj_word=obj_word,
         generator=generator, train=train, with_cky=with_cky,
         outside=outside, with_all_atten=need_all_atten,
         materialize_atten=(tc.attn_impl == "einsum" and mesh is None),
-        lengths=lengths)
+        lengths=lengths, mp=tp.hidden)
     aux = {"x_word": x_word, "obj_span": obj_span, "obj_word": obj_word}
     return out, aux
 
@@ -233,7 +271,8 @@ def _images(aux, key, mesh):
 
 def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
                 neg_samples, out, aux=None, lengths=None,
-                mesh=None) -> Dict[str, torch.Tensor]:
+                mesh=None, tp: TensorParallel = NO_TP
+                ) -> Dict[str, torch.Tensor]:
     """All enabled losses from forward outputs; under a dp ``mesh`` the
     rank's shares of the global batch's losses (training/losses.py).
 
@@ -242,7 +281,8 @@ def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
     metrics: Dict[str, torch.Tensor] = {}
     recon = reconstruction_loss(
         params["reconstruct"], params["embed"]["embeddings"], tokens,
-        neg_samples, out.chart.outside_h, lengths=lengths, mesh=mesh)
+        neg_samples, out.chart.outside_h, lengths=lengths, mesh=mesh,
+        mp=tp.embed)
     metrics["reconstruction_softmax_loss"] = recon
     total = recon
 
@@ -298,7 +338,8 @@ def losses_from(cfg: ModelConfig, tc: TrainConfig, params, tokens,
 
 
 def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
-                          tokens, obj_feats, lengths=None, mesh=None):
+                          tokens, obj_feats, lengths=None, mesh=None,
+                          tp: TensorParallel = NO_TP):
     """The chart-free ``word`` baseline's forward and its one loss, the VG
     InfoNCE over the word x region scores.  Returns ``(out, metrics)``;
     under a dp ``mesh`` (training) ``out`` is None and the loss is the
@@ -307,8 +348,9 @@ def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
     cliora/net/vg.py:477-482)
     """
     _, x_word = embed_forward(params["embed"], tokens,
-                              trainable=tc.emb_trainable)
-    _, obj_word = image_encoder_forward(params["img_encoder"], obj_feats)
+                              trainable=tc.emb_trainable, mp=tp.embed)
+    _, obj_word = image_encoder_forward(params["img_encoder"], obj_feats,
+                                        mp=tp.regions)
     if mesh is not None:
         vg = torch.einsum("ald,crd->aclr", x_word,
                           gather_rows(obj_word, mesh))
@@ -322,20 +364,22 @@ def word_grounding_losses(cfg: ModelConfig, tc: TrainConfig, params,
 def compute_losses(cfg: ModelConfig, tc: TrainConfig, params, tokens,
                    neg_samples, obj_feats=None,
                    generator: Optional[torch.Generator] = None,
-                   train: bool = True, lengths=None, mesh=None):
+                   train: bool = True, lengths=None, mesh=None,
+                   tp: TensorParallel = NO_TP):
     """Forward + all enabled losses; returns ``(total, metrics)``.  Under
     a dp ``mesh`` (training only) the losses are the rank's shares of the
-    global batch's and ``generator`` is the rank's :class:`RankRows`."""
+    global batch's and ``generator`` is the rank's :class:`RankRows`;
+    ``tp`` splits the weights over an mp group."""
     if cfg.arch == "word":
         _, metrics = word_grounding_losses(cfg, tc, params, tokens,
                                            obj_feats, lengths=lengths,
-                                           mesh=mesh)
+                                           mesh=mesh, tp=tp)
         return metrics["total_loss"], metrics
     out, aux = forward_outputs(cfg, tc, params, tokens, obj_feats=obj_feats,
                                generator=generator, train=train,
-                               lengths=lengths, mesh=mesh)
+                               lengths=lengths, mesh=mesh, tp=tp)
     metrics = losses_from(cfg, tc, params, tokens, neg_samples, out, aux,
-                          lengths=lengths, mesh=mesh)
+                          lengths=lengths, mesh=mesh, tp=tp)
     return metrics["total_loss"], metrics
 
 
@@ -442,7 +486,19 @@ class Trainer:
         self.tc = tc
         self.mesh = mesh
         self.device = _resolve_device(device)
-        self.params = to_device(params, self.device)
+        params = to_device(params, self.device)
+        # tensor parallelism: the dim each leaf is cut on (None: whole),
+        # the whole shapes, and the rank's slices in place of the leaves
+        mp = 1 if mesh is None else mesh.mp
+        self.tp = tensor_parallel(cfg, mesh)
+        self.shard_dims = shard_dims(params, mp)
+        self._dim_of = dict(zip(tree_paths(self.shard_dims),
+                                tree_leaves(self.shard_dims)))
+        self.full_shapes = dict(zip(tree_paths(params),
+                                    [tuple(p.shape) for p in
+                                     tree_leaves(params)]))
+        self.params = (params if mp == 1
+                       else shard_params(mesh, params, self.shard_dims))
         self.mask = trainable_mask(tc, self.params)
         for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
             p.requires_grad_(m)
@@ -452,7 +508,8 @@ class Trainer:
         capturable = self.device.type == "cuda"
         # ZeRO-1 (parallel/sharding.py) owns the optimizer of the rank's
         # slice of the flat trainable parameters
-        self.zero1 = (Zero1(self.trainable_params(), tc, mesh, capturable)
+        self.zero1 = (Zero1(self.trainable_params(), tc, mesh, capturable,
+                            cut=self._trainable_cut())
                       if tc.zero1 else None)
         self.optimizer = (self.zero1.optimizer if self.zero1 is not None
                           else make_optimizer(tc, self.params, self.mask,
@@ -533,7 +590,7 @@ class Trainer:
             with torch.no_grad():
                 _, metrics = compute_losses(
                     self.cfg, self.tc, self.params, tokens, neg,
-                    obj_feats=obj, train=False, lengths=lengths)
+                    obj_feats=obj, train=False, lengths=lengths, tp=self.tp)
             return metrics
         if generator is not None:
             return self._train_step(tokens, neg, obj, lengths, generator)
@@ -566,7 +623,8 @@ class Trainer:
         for tok, ob, lens in self._microbatches(tokens, obj, lengths):
             total, m = compute_losses(
                 self.cfg, self.tc, self.params, tok, neg, obj_feats=ob,
-                generator=generator, train=True, lengths=lens, mesh=mesh)
+                generator=generator, train=True, lengths=lens, mesh=mesh,
+                tp=self.tp)
             total.backward()
             m = {k: v.detach() for k, v in m.items()}
             metrics = m if metrics is None else {
@@ -586,7 +644,11 @@ class Trainer:
             grads = all_reduce_flat(grads, mesh)
         if A > 1:
             grads = [g / A for g in grads]
-        clipped, _ = clip_by_global_norm(grads, self.tc.grad_clip)
+        # the cut parameters' flags and the mp group only under tensor
+        # parallelism: the clip is called as (grads, max_norm) otherwise
+        mp_kw = ({} if self._mp() == 1
+                 else {"cut": self._trainable_cut(), "mesh": mesh})
+        clipped, _ = clip_by_global_norm(grads, self.tc.grad_clip, **mp_kw)
         for p, g in zip(trainable, clipped):
             p.grad = g
         self.optimizer.step()
@@ -621,12 +683,13 @@ class Trainer:
     def _graph_key(self, batch) -> tuple:
         """The shapes a captured step is specialised to: B, L, k_neg, R,
         F (None without regions), ``lengths`` given or not,
-        ``accum_steps``, the dp group's size and ``zero1``."""
+        ``accum_steps``, the dp group's size, the mp group's and
+        ``zero1``."""
         tokens, neg, obj, lengths = batch
         return (*tokens.shape, neg.shape[0],
                 *((None, None) if obj is None else obj.shape[1:]),
                 lengths is not None, self.tc.accum_steps,
-                dp_size(self.mesh), self.tc.zero1)
+                dp_size(self.mesh), self._mp(), self.tc.zero1)
 
     def steps(self, batch_maps) -> List[Dict[str, torch.Tensor]]:
         """``len(batch_maps)`` train steps on batches of one shape, which
@@ -716,6 +779,29 @@ class Trainer:
         """The trainable parameters, in :meth:`_trainable`'s order."""
         return [p for _, p in self._trainable()]
 
+    def _mp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.mp
+
+    def _trainable_cut(self) -> List[bool]:
+        """Whether each trainable parameter is the rank's slice of a cut
+        one, in :meth:`_trainable`'s order."""
+        return [self._dim_of[k] is not None for k, _ in self._trainable()]
+
+    def _whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a leaf's (or its Adam moment's) slice: an
+        all-gather over the mp group for a cut leaf."""
+        d = self._dim_of[path]
+        return t if d is None else gather_mp(t, self.mesh, d)
+
+    def full_params(self):
+        """The whole parameters: ``self.params`` itself, or under tensor
+        parallelism a new tree gathered from the mp group's slices (a
+        collective: every rank calls it).  Checkpoints are written from
+        it."""
+        if self._mp() == 1:
+            return self.params
+        return gather_params(self.mesh, self.params, self.shard_dims)
+
     def set_step(self, n: int):
         """Restore the host step counter, which keys the dropout stream
         (:meth:`dropout_generator`), for exact resume
@@ -728,25 +814,26 @@ class Trainer:
         """Adam's state on the host: ``{"count": int, "mu": {path: array},
         "nu": {path: array}}`` over the trainable parameters, the form
         ``checkpoint.save_opt_state`` writes, copied to the host.  Syncs
-        with the device.  Under ZeRO-1 every rank must call it: it
-        gathers the shards (cliora_tpu/training/trainer.py
-        ``local_opt_state``)."""
-        def host(t):      # a copy: the next step updates ``t`` in place
-            return t.detach().to("cpu", copy=True).numpy()
+        with the device.  Under ZeRO-1 or tensor parallelism every rank
+        must call it: it gathers the shards into whole moments
+        (cliora_tpu/training/trainer.py ``local_opt_state``)."""
+        def host(path, t):  # a copy: the next step updates ``t`` in place
+            return self._whole(path, t.detach()).to(
+                "cpu", copy=True).numpy()
 
         out = {"count": 0, "mu": {}, "nu": {}}
         if self.zero1 is not None:
             count, mu, nu = self.zero1.full_state()
             out["count"] = count
             for (path, p), m, v in zip(self._trainable(), mu, nu):
-                out["mu"][path] = host(m.view(p.shape))
-                out["nu"][path] = host(v.view(p.shape))
+                out["mu"][path] = host(path, m.view(p.shape))
+                out["nu"][path] = host(path, v.view(p.shape))
             return out
         for path, p in self._trainable():
             st = self.optimizer.state[p]
             out["count"] = int(st["step"])
-            out["mu"][path] = host(st["exp_avg"])
-            out["nu"][path] = host(st["exp_avg_sq"])
+            out["mu"][path] = host(path, st["exp_avg"])
+            out["nu"][path] = host(path, st["exp_avg_sq"])
         return out
 
     @torch.no_grad()
@@ -758,14 +845,22 @@ class Trainer:
         so captured graphs stay valid (cliora_tpu/training/trainer.py:
         531-559 ``install_state``).  Under a dp mesh every rank must
         call it: the parameters are then rank 0's, and ZeRO-1 keeps the
-        rank's slice of the optimizer state.  Raises ``ValueError`` on a
+        rank's slice of the optimizer state.  The values are whole
+        tensors; under tensor parallelism each rank keeps its slices (the
+        JAX ``install_state`` re-shards).  Raises ``ValueError`` on a
         missing path or a shape that differs."""
-        def put(dst, src, what):
+        def local(src, path, what):
+            """``src``, checked against the whole shape, as the rank's
+            slice."""
             src = torch.as_tensor(src)
-            if tuple(src.shape) != tuple(dst.shape):
+            if tuple(src.shape) != self.full_shapes[path]:
                 raise ValueError(f"{what}: shape {tuple(src.shape)} != "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(src)
+                                 f"{self.full_shapes[path]}")
+            d = self._dim_of[path]
+            return src if d is None else mp_slice(src, self.mesh, d)
+
+        def put(dst, src, path, what):
+            dst.copy_(local(src, path, what))
 
         if params is not None:
             flat = dict(zip(tree_paths(params), tree_leaves(params)))
@@ -773,7 +868,7 @@ class Trainer:
                                tree_leaves(self.params)):
                 if path not in flat:
                     raise ValueError(f"params: no {path}")
-                put(p, flat[path], path)
+                put(p, flat[path], path, path)
             replicate_tree(self.mesh, tree_leaves(self.params))
             if self.zero1 is not None:
                 self.zero1.params_changed()
@@ -787,31 +882,28 @@ class Trainer:
                         f"{sorted(set(opt_state[part]) ^ names)} do not "
                         f"match the trainable parameters")
             if self.zero1 is not None:
-                for part in ("mu", "nu"):
-                    for path, p in trainable:
-                        shape = tuple(torch.as_tensor(
-                            opt_state[part][path]).shape)
-                        if shape != tuple(p.shape):
-                            raise ValueError(f"{part}/{path}: shape {shape} "
-                                             f"!= {tuple(p.shape)}")
-                self.zero1.install(
-                    int(opt_state["count"]),
-                    [opt_state["mu"][k] for k, _ in trainable],
-                    [opt_state["nu"][k] for k, _ in trainable])
+                mine = {part: [local(opt_state[part][k], k, f"{part}/{k}")
+                               for k, _ in trainable]
+                        for part in ("mu", "nu")}
+                self.zero1.install(int(opt_state["count"]), mine["mu"],
+                                   mine["nu"])
                 return
             for path, p in trainable:
                 st = self.optimizer.state[p]
-                put(st["exp_avg"], opt_state["mu"][path], "mu/" + path)
-                put(st["exp_avg_sq"], opt_state["nu"][path], "nu/" + path)
+                put(st["exp_avg"], opt_state["mu"][path], path, "mu/" + path)
+                put(st["exp_avg_sq"], opt_state["nu"][path], path,
+                    "nu/" + path)
                 st["step"].fill_(float(opt_state["count"]))
             replicate_tree(self.mesh, [
                 self.optimizer.state[p][k] for _, p in trainable
                 for k in ("exp_avg", "exp_avg_sq")])
 
     def parameter_norm(self, trainable_only: bool = True) -> float:
-        """Sum of per-parameter L2 norms (reference: trainer.py:360-367)."""
+        """Sum of per-parameter L2 norms (reference: trainer.py:360-367);
+        under tensor parallelism a collective over the mp group."""
         total = 0.0
-        for p, m in zip(tree_leaves(self.params), tree_leaves(self.mask)):
+        for p, m in zip(tree_leaves(self.full_params()),
+                        tree_leaves(self.mask)):
             if trainable_only and not m:
                 continue
             total += float(torch.linalg.vector_norm(p.detach().reshape(-1)))
@@ -827,6 +919,11 @@ class Trainer:
             impl = "cuda" if self.device.type == "cuda" else "plain"
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError("impl='cuda' needs a trainer on a CUDA device")
+        if self._mp() > 1:
+            # K1 reads whole compose weights: under tensor parallelism the
+            # parse takes the plain route, as the JAX package's mp gating
+            # does (cliora_tpu/training/trainer.py:736-740)
+            impl = "plain"
         # the fused kernel implements the text-only mlp compose + soft
         # split softmax over full-length sentences, and returns
         # backpointers only (the JAX package's gating,
@@ -863,7 +960,9 @@ class Trainer:
         ``with_chart`` ``inside_h`` and, when the outside pass ran,
         ``outside_h`` (B, ncells, D), as float32 whatever the chart dtype.
         ``res["parse_impl"]`` is the route that decoded the batch: "cuda"
-        (kernel K1) or "plain" (the chart pass).  ``metrics`` maps each
+        (kernel K1) or "plain" (the chart pass).  Under tensor
+        parallelism the mp ranks of a dp row parse the same rows together
+        (a collective) on the plain route.  ``metrics`` maps each
         loss of ``losses_from(..., train=False)`` to a float under
         ``compute_loss``, else is empty.
 
@@ -904,14 +1003,16 @@ class Trainer:
         if self.cfg.arch == "word":
             # chart-free baseline: no trees, grounding scores only
             wg, metrics = word_grounding_losses(
-                self.cfg, self.tc, self.params, tokens, obj, lengths=lengths)
+                self.cfg, self.tc, self.params, tokens, obj, lengths=lengths,
+                tp=self.tp)
             res = {"atten_score": wg.atten_score.cpu().numpy(),
                    "parse_impl": route}
             return res, ({k: float(v) for k, v in metrics.items()}
                          if compute_loss else {})
         out, aux = forward_outputs(
             self.cfg, self.tc, self.params, tokens, obj_feats=obj,
-            train=False, with_cky=True, outside=outside, lengths=lengths)
+            train=False, with_cky=True, outside=outside, lengths=lengths,
+            tp=self.tp)
         res = {"cky_bp": out.chart.cky_bp}
         if with_chart:
             res["inside_h"] = out.chart.inside_h
@@ -926,7 +1027,7 @@ class Trainer:
         metrics = {}
         if compute_loss:
             metrics = losses_from(self.cfg, self.tc, self.params, tokens,
-                                  neg, out, aux, lengths=lengths)
+                                  neg, out, aux, lengths=lengths, tp=self.tp)
         res = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
                for k, v in res.items()}
         res["parse_impl"] = route

@@ -58,11 +58,13 @@ def argument_parser() -> argparse.ArgumentParser:
                         "without a card; NCCL between ranks) or 'cpu' "
                         "(gloo between ranks).")
     p.add_argument("--n_devices", default=None, type=int,
-                   help="Width of the data-parallel group: must equal "
-                        "the world size (one process a card).")
+                   help="Number of ranks, dp x mp: must equal the world "
+                        "size (one process a card).")
     p.add_argument("--mp", default=1, type=int,
-                   help="Tensor-parallel width (1 only: tensor "
-                        "parallelism is not ported, ROADMAP A8).")
+                   help="Tensor-parallel (model) mesh width: devices are "
+                        "arranged as a (dp, mp) mesh and weight matrices "
+                        "are sharded Megatron-style over mp "
+                        "(parallel/sharding.py).")
     p.add_argument("--cuda", action="store_true")       # ignored
     p.add_argument("--multigpu", action="store_true")   # ignored
     p.add_argument("--local_rank", default=None, type=int,
@@ -318,11 +320,8 @@ def argument_parser() -> argparse.ArgumentParser:
 
 
 # flag values whose feature the port does not have yet -> the ROADMAP item
-# that brings it
-_UNPORTED = (
-    ("--mp > 1", lambda o: o.mp > 1, "A8, tensor parallelism"),
-    ("--emb elmo", lambda o: o.emb == "elmo", "A6"),
-)
+# that brings it (none since tensor parallelism and the ELMo char-CNN)
+_UNPORTED = ()
 
 
 def refuse_unported(options):

@@ -192,14 +192,57 @@ def test_flags_parse_like_jax(script):
     assert got["device"] == "cuda"
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--mp", "2"], "A8, tensor parallelism"), (["--emb", "elmo"], "A6")])
-def test_unported_flags_raise(flag, item, tmp_path):
-    """A flag whose feature is not ported yet raises, naming the ROADMAP
-    item, instead of being accepted and ignored."""
+class _ReachedMesh(Exception):
+    pass
+
+
+def _txt_train_args(tmp_path, extra):
+    words = [f"w{i}" for i in range(12)]
+    rs = np.random.RandomState(0)
+    corpus = tmp_path / "train.txt"
+    corpus.write_text("".join(
+        " ".join(words[i] for i in rs.randint(0, 12, 5)) + "\n"
+        for _ in range(8)))
+    return ["--device", "cpu", "--data_type", "txt", "--emb", "none",
+            "--train_path", str(corpus), "--validation_path", str(corpus),
+            "--experiment_path", str(tmp_path / "exp"), "--hidden_dim", "8",
+            "--k_neg", "3", "--batch_size", "4", *extra]
+
+
+@pytest.mark.parametrize("flag, field, value", [
+    (["--mp", "2"], "mp", 2), (["--emb", "elmo"], "emb", "elmo")])
+def test_formerly_unported_flags_are_accepted(flag, field, value, tmp_path,
+                                              monkeypatch):
+    """The two flags the port refused until tensor parallelism and the
+    ELMo char-CNN were ported now parse (``_UNPORTED`` is empty), and the
+    train CLI hands ``--mp 2`` to ``make_mesh`` (tests/test_torch_tp.py
+    and tests/test_torch_elmo.py run them)."""
+    from cliora_tpu_torch.scripts import train as port_train
+
     args = flag + ["--experiment_path", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port_flags.parse_args(port_flags.argument_parser(), args)
+    options = port_flags.parse_args(port_flags.argument_parser(), args)
+    assert getattr(options, field) == value
+    assert port_flags._UNPORTED == ()
+    if field == "mp":
+        calls = []
+
+        def make_mesh(n_devices=None, mp=1):
+            calls.append((n_devices, mp))
+            raise _ReachedMesh
+
+        monkeypatch.setattr(port_train, "make_mesh", make_mesh)
+        with pytest.raises(_ReachedMesh):
+            port_train.main(_txt_train_args(tmp_path, flag))
+        assert calls == [(None, 2)]
+
+
+def test_mp_without_a_group_names_the_launcher(tmp_path):
+    """``--mp 2`` in one process without a process group raises, naming
+    ``torch.distributed.run``, as ``--n_devices`` does."""
+    from cliora_tpu_torch.scripts import train as port_train
+
+    with pytest.raises(ValueError, match="mp=2.*torch.distributed.run"):
+        port_train.main(_txt_train_args(tmp_path, ["--mp", "2"]))
 
 
 @pytest.mark.parametrize("flag, field, value", [

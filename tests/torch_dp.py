@@ -1,11 +1,13 @@
-"""Data-parallel cases of the port, run by two-rank gloo workers and by
-the tests' one-process references (tests/test_torch_parallel.py,
-tests/test_torch_multihost.py, tests/test_torch_dist_ckpt.py).
+"""Data- and tensor-parallel cases of the port, run by gloo workers and
+by the tests' one-process references (tests/test_torch_parallel.py,
+tests/test_torch_multihost.py, tests/test_torch_dist_ckpt.py,
+tests/test_torch_tp.py, tests/test_torch_tp_ckpt.py).
 
 A worker is this file run as a script, ``python torch_dp.py OUT RANK
 WORLD PORT GROUP``: it joins a gloo group on localhost, runs the cases
 of ``GROUP`` on its rows of each global batch, and writes what it saw to
-``OUT/rank{RANK}.npz``.  It imports torch and the port only.
+``OUT/rank{RANK}.npz``.  It imports torch and the port only.  The
+``tp*`` groups lay the world out as a ``dp x mp`` grid with ``mp = 2``.
 """
 
 import os
@@ -29,7 +31,10 @@ def case_configs(name):
     case.  ``cliora*``: VG + contrastive; ``_einsum``: the materialized
     scores, else the fused ``cuda`` route (its plain version on the
     CPU); ``_lengths``: padded rows; ``_dropout``: attention dropout
-    0.1; ``_accum``: two microbatches; ``_zero1``: ZeRO-1."""
+    0.1; ``_accum``: two microbatches; ``_zero1``: ZeRO-1;
+    ``_treelstm``, ``_word``: those archs; ``_remat_<policy>``: the chart
+    levels rematerialized under that policy; ``_1step``: one batch, not
+    ``STEPS``."""
     model = dict(size=D, input_size=E)
     train = dict(lr=LR, k_neg=K, emb_trainable=True, attn_impl="cuda")
     if name.startswith("cliora"):
@@ -42,6 +47,11 @@ def case_configs(name):
         train["accum_steps"] = 2
     if "_zero1" in name:
         train["zero1"] = True
+    for arch in ("treelstm", "word"):
+        if f"_{arch}" in name:
+            model["arch"] = arch
+    if "_remat_" in name:
+        model.update(remat=True, remat_policy=name.split("_remat_")[1])
     return model, train, "_lengths" in name
 
 
@@ -59,7 +69,7 @@ def batches(name, steps=STEPS, seed=3):
     _, _, with_lengths = case_configs(name)
     rs = np.random.RandomState(seed)
     out = []
-    for _ in range(steps):
+    for _ in range(1 if "_1step" in name else steps):
         b = {"sentences": rs.randint(2, V, (B, L)),
              "neg_samples": rs.choice(V, K, replace=False)}
         if name.startswith("cliora"):
@@ -100,7 +110,7 @@ def run_case(name, mesh=None, grouped=False):
     ms = tr.steps(mine) if grouped else [tr.step(b) for b in mine]
     names = sorted(ms[0])
     losses = np.array([[float(m[k]) for k in names] for m in ms])
-    return losses, names, flatten(tr.params), tr.opt_state(), tr
+    return losses, names, flatten(tr.full_params()), tr.opt_state(), tr
 
 
 # -- the worker -------------------------------------------------------------
@@ -121,14 +131,14 @@ def _case_record(rec, tag, losses, names, flat, opt):
 
 
 
-def join(rank, world, port):
-    """Join the gloo group of the worker launch; returns its dp mesh."""
+def join(rank, world, port, mp=1):
+    """Join the gloo group of the worker launch; returns its mesh."""
     from cliora_tpu_torch.parallel.mesh import make_mesh
     from cliora_tpu_torch.parallel.multihost import initialize_multihost
 
     assert initialize_multihost(f"127.0.0.1:{port}", world, rank,
                                 device="cpu")
-    return make_mesh(world)
+    return make_mesh(world, mp=mp)
 
 
 PARALLEL_CASES = ("diora", "cliora", "cliora_lengths", "cliora_einsum",
@@ -257,11 +267,11 @@ def cli_flags(corpus, extra=()):
             "--device", "cpu", "--log_every_batch", "100", *extra]
 
 
-def group_cli(out, rank, world, port, rec):
+def group_cli(out, rank, world, port, rec, extra=()):
     """tests/test_torch_multihost.py: the train CLI in ``world``
-    processes with ``--zero1`` (the corpus is written beforehand): two
-    epochs, then every rank resumes from the chief's epoch-0 files and
-    runs the second epoch again."""
+    processes with ``--zero1`` and the ``extra`` flags (the corpus is
+    written beforehand): two epochs, then every rank resumes from the
+    chief's epoch-0 files and runs the second epoch again."""
     import torch.distributed as dist
 
     from cliora_tpu_torch.scripts import train
@@ -269,7 +279,7 @@ def group_cli(out, rank, world, port, rec):
     corpus = os.path.join(out, "corpus")
     dist_flags = ["--world_size", str(world), "--local_rank", str(rank),
                   "--master_addr", "127.0.0.1", "--master_port", str(port),
-                  "--n_devices", str(world), "--zero1"]
+                  "--n_devices", str(world), "--zero1", *extra]
     exp1, exp2 = os.path.join(out, "exp1"), os.path.join(out, "exp2")
     _, r1 = train.main(cli_flags(corpus, dist_flags + [
         "--experiment_path", exp1, "--max_epoch", "2"]))
@@ -298,8 +308,221 @@ def group_dist_ckpt(out, rank, world, port, rec):
                  flatten(tr.params), tr.opt_state())
 
 
+# -- tensor parallelism ------------------------------------------------------
+
+MP = 2
+TP_CASES = ("diora", "cliora", "cliora_zero1", "diora_zero1")
+# cases of the two-rank (1, 2) grid only
+TP_MORE_CASES = ("cliora_treelstm_1step", "cliora_word", "cliora_dropout",
+                 "cliora_dropout_remat_full", "cliora_dropout_remat_dots",
+                 "cliora_dropout_remat_gathers")
+
+
+def tp_ops_inputs(seed=13):
+    """Whole weights and inputs of the sharded ops at the small width
+    (numpy, the same on every rank)."""
+    rs = np.random.RandomState(seed)
+
+    def f(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    return {"fc0/w": f(D, 2 * D), "fc0/b": f(D), "fc1/w": f(D, D),
+            "fc1/b": f(D), "mat": f(D, D), "l": f(B, 7, D), "r": f(B, 7, D),
+            "table": f(V, E), "emat": f(D, E), "emat1": f(D, E),
+            "tokens": rs.randint(0, V, (B, L)),
+            "neg": rs.choice(V, K, replace=False), "img_w": f(D, F),
+            "img_b": f(D), "img_vw": f(D, F), "img_vb": f(D),
+            "feats": f(B, R, F), "out_h": f(B, 21, D), "g": f(B, 7, D)}
+
+
+def tp_ops(mesh):
+    """Each sharded op of parallel/sharding.py's list, on whole inputs:
+    ``{op: (outputs, {input or weight: gradient})}`` of a scalar of the
+    outputs; with a ``mesh`` the weights are the rank's slices and each
+    weight's gradient is gathered whole (an input's is the rank's, which
+    ``copy_to_mp`` makes whole)."""
+    import torch
+
+    from cliora_tpu_torch.models.diora import (
+        embed_forward,
+        image_encoder_forward,
+    )
+    from cliora_tpu_torch.ops.core import bilinear, compose_mlp
+    from cliora_tpu_torch.parallel.sharding import (
+        copy_to_mp,
+        gather_mp,
+        mp_slice,
+    )
+    from cliora_tpu_torch.training.losses import reconstruction_loss
+
+    x = tp_ops_inputs()
+
+    def t(k, dim=None):
+        v = torch.tensor(x[k])
+        if mesh is not None and dim is not None:
+            v = mp_slice(v, mesh, dim).contiguous()
+        return v.requires_grad_(v.is_floating_point())
+
+    def whole(v, dim):
+        g = v.grad
+        return g if mesh is None or dim is None else gather_mp(g, mesh, dim)
+
+    def copied(v):
+        return copy_to_mp(v, mesh)
+
+    out = {}
+    w0, b0, w1, b1 = t("fc0/w", 0), t("fc0/b", 0), t("fc1/w", 1), t("fc1/b")
+    l, r = t("l"), t("r")
+    h = compose_mlp({"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}},
+                    copied(l), copied(r), mp=mesh)
+    (h * torch.tensor(x["g"])).sum().backward()
+    out["compose"] = (h, {"fc0/w": whole(w0, 0), "fc0/b": whole(b0, 0),
+                          "fc1/w": whole(w1, 1), "fc1/b": b1.grad,
+                          "l": l.grad, "r": r.grad})
+    mat, l, r = t("mat", 1), t("l"), t("r")
+    s = bilinear(mat, copied(l), copied(r), mp=mesh)
+    (s * s).sum().backward()
+    out["bilinear"] = (s, {"mat": whole(mat, 1), "l": l.grad, "r": r.grad})
+    table, m0, m1 = t("table", 1), t("emat", 1), t("emat1", 1)
+    tok = torch.tensor(x["tokens"])
+    xs, xw = embed_forward({"embeddings": table, "mat": m0, "mat1": m1},
+                           tok, mp=mesh)
+    (xs.square().sum() + (xw * xs).sum()).backward()
+    out["embed"] = (torch.stack([xs, xw]), {
+        "embeddings": whole(table, 1), "mat": whole(m0, 1),
+        "mat1": whole(m1, 1)})
+    iw, ib, vw, vb = t("img_w", 1), t("img_b"), t("img_vw", 1), t("img_vb")
+    os_, ow = image_encoder_forward(
+        {"fc": {"w": iw, "b": ib}, "fc_vis": {"w": vw, "b": vb}},
+        torch.tensor(x["feats"]), mp=mesh)
+    (os_.square().sum() + (ow * os_).sum()).backward()
+    out["image_encoder"] = (torch.stack([os_, ow]), {
+        "fc/w": whole(iw, 1), "fc/b": ib.grad, "fc_vis/w": whole(vw, 1),
+        "fc_vis/b": vb.grad})
+    table, rmat, oh = t("table", 1), t("emat", 1), t("out_h")
+    loss = reconstruction_loss({"mat": rmat}, table, tok,
+                               torch.tensor(x["neg"]), oh, mp=mesh)
+    loss.backward()
+    out["reconstruction"] = (loss, {"embeddings": whole(table, 1),
+                                    "mat": whole(rmat, 1), "outside_h":
+                                    oh.grad})
+    return out
+
+
+def _ops_record(rec, tag, ops):
+    for op, (val, grads) in ops.items():
+        rec[f"{tag}/{op}/out"] = val.detach().numpy()
+        for k, g in grads.items():
+            rec[f"{tag}/{op}/grad/{k}"] = g.numpy()
+
+
+def tp_parse_batch(seed=17):
+    rs = np.random.RandomState(seed)
+    return {"sentences": rs.randint(2, V, (B, L))}
+
+
+def group_tp(out, rank, world, port, rec):
+    """tests/test_torch_tp.py: the sharded ops against the whole ones,
+    the text and CLIORA steps (and ZeRO-1) over three global batches,
+    each rank's slice shapes, ``install_state`` of the trainer's own
+    whole state, and the parse under mp."""
+    from cliora_tpu_torch.parallel.mesh import shard_batch
+
+    mesh = join(rank, world, port, mp=MP)
+    rec["grid"] = np.array([mesh.size, mesh.rank, mesh.mp, mesh.mp_rank])
+    if mesh.size == 1:
+        _ops_record(rec, "tp", tp_ops(mesh))
+    for name in TP_CASES + (TP_MORE_CASES if mesh.size == 1 else ()):
+        losses, names, flat, opt, tr = run_case(name, mesh)
+        _case_record(rec, name, losses, names, flat, opt)
+    tr = trainer("diora", mesh)
+    for k, p in zip(*map(lambda f: f(tr.params), (_paths, _leaves))):
+        rec[f"shape/{k}"] = np.array(p.shape)
+    before = [p.detach().clone() for p in _leaves(tr.params)]
+    tr.install_state(tr.full_params(), tr.opt_state())
+    rec["install_keeps_slices"] = np.array(all(
+        bool(torch_equal(a, b)) for a, b in zip(before, _leaves(tr.params))))
+    res, _ = tr.parse(tp_parse_batch())
+    rec["parse/cky_bp"] = res["cky_bp"]
+    rec["parse/route"] = np.array(res["parse_impl"])
+    # two steps on one batch: the loss descends
+    tr = trainer("cliora", mesh)
+    b = shard_batch(mesh, batches("cliora")[0])
+    rec["descend"] = np.array([float(tr.step(b)["total_loss"])
+                               for _ in range(2)])
+
+
+def group_tp_ckpt(out, rank, world, port, rec):
+    """tests/test_torch_tp_ckpt.py: a ZeRO-1 text trainer at ``(dp, 2)``
+    after two steps writes the ``.npz`` and ``.opt.pkl`` (the chief) and a
+    DCP directory; a fresh trainer restored from the directory takes the
+    third step, beside the uninterrupted trainer's third step."""
+    from cliora_tpu_torch.training.checkpoint import (
+        save_opt_state,
+        save_params,
+    )
+    from cliora_tpu_torch.parallel.mesh import shard_batch
+    from cliora_tpu_torch.training.dist_ckpt import restore_state, save_state
+
+    mesh = join(rank, world, port, mp=MP)
+    name = "diora_zero1"
+    mine = [shard_batch(mesh, b) for b in batches(name)]
+    tr = trainer(name, mesh)
+    for b in mine[:2]:
+        tr.step(b)
+    opt, params = tr.opt_state(), tr.full_params()
+    if rank == 0:
+        save_params(os.path.join(out, "tp.npz"), params)
+        save_opt_state(os.path.join(out, "tp.opt.pkl"), opt)
+    save_state(os.path.join(out, "tp.dcp"), tr)
+    _case_record(rec, "saved", np.zeros((1, 1)), ["none"],
+                 {k: v for k, v in _flat(params).items()}, opt)
+    fresh = trainer(name, mesh)
+    restore_state(os.path.join(out, "tp.dcp"), fresh)
+    for tag, t in (("uninterrupted", tr), ("resumed", fresh)):
+        m = t.step(mine[2])
+        _case_record(rec, tag, np.array([[float(m["total_loss"])]]),
+                     ["total_loss"], _flat(t.full_params()), t.opt_state())
+
+
+def group_tp_restore(out, rank, world, port, rec):
+    """tests/test_torch_tp_ckpt.py: the DCP directory written at mp = 2
+    (``OUT/../tp.dcp``), restored by a dp group without tensor
+    parallelism, replicated and under ZeRO-1."""
+    from cliora_tpu_torch.training.dist_ckpt import restore_state
+
+    mesh = join(rank, world, port)
+    for zero1 in (False, True):
+        tr = trainer("diora_zero1" if zero1 else "diora", mesh)
+        restore_state(os.path.join(os.path.dirname(out), "tp.dcp"), tr)
+        _case_record(rec, f"zero1_{zero1}", np.zeros((1, 1)), ["none"],
+                     _flat(tr.full_params()), tr.opt_state())
+
+
+def _flat(params):
+    from cliora_tpu_torch.training.checkpoint import flatten
+    return flatten(params)
+
+
+def _paths(tree):
+    from cliora_tpu_torch.training.trainer import tree_paths
+    return tree_paths(tree)
+
+
+def _leaves(tree):
+    from cliora_tpu_torch.training.trainer import tree_leaves
+    return tree_leaves(tree)
+
+
+def torch_equal(a, b):
+    import torch
+    return torch.equal(a, b)
+
+
 GROUPS = {"parallel": group_parallel, "multihost": group_multihost,
-          "cli": group_cli, "dist_ckpt": group_dist_ckpt}
+          "cli": group_cli, "dist_ckpt": group_dist_ckpt, "tp": group_tp,
+          "tp_ckpt": group_tp_ckpt, "tp_restore": group_tp_restore,
+          "tp_cli": lambda *a: group_cli(*a, extra=("--mp", str(MP)))}
 
 
 def worker_main(out, rank, world, port, group):
