@@ -43,8 +43,7 @@ width with random weights from a seed:
     remat of the chart levels at B=128, L=40, bf16 (phase ``remat``: the
     unremated step and the full, selective, dots and gathers policies,
     each graphed, with step ms and peak memory; each against the
-    unremated gradients at dropout 0.1; graphed against eager bits; the
-    unremated peaks that calibrate the auto-remat estimate); the
+    unremated gradients at dropout 0.1; graphed against eager bits); the
     chart-free ``word`` baseline (phase ``word``: no hand kernel); and the
     train CLI with ``--arch treelstm``, ``--arch word`` and ``--remat
     --remat_frac 0.85`` (phase ``cli_archs``);
@@ -89,7 +88,18 @@ width with random weights from a seed:
     performance, and an NCCL mp step across cards needs several cards;
   * the ELMo char-CNN (phase ``elmo``) at the published width with
     random weights over 10,000 words, card against CPU, then the train
-    CLI with ``--emb elmo`` from the cache the phase writes;
+    CLI with ``--emb elmo`` and no cache: the CLI writes it on the card
+    under torch's default TF32 flags, and it is held against the CPU's
+    vectors;
+  * the measuring tools (phase ``tools``, cliora_tpu_torch/tools/), each
+    through its ``main`` at its smallest setting on the card:
+    ``profile_step`` (a replayed bench step, K2-K4 2 each by name, its
+    device ms against ``train_graphs``'), ``bench_bucketed`` (DIORA,
+    2,000 sentences, 2 buckets), a ``bench_l40`` child process,
+    ``autotune_buckets``' choice on those probes, ``mem_analysis`` at
+    (128, 20) (its copy factor against ``_ACT_COPY_FACTOR``),
+    ``bench_serving`` at 32 x 10 (the live parse on K1),
+    ``bench_decode`` and ``bench_matmul_pad``;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -114,7 +124,8 @@ build fails if that K4 kernel spills.
 
 Prints one JSON object per phase, then the ``kernels`` summary (each
 kernel's launches on the main paths, by phase and stage: ``cli_launches``,
-``arch_launches``, ``dp_launches``, ``tp_launches``, ``elmo_launches``),
+``arch_launches``, ``dp_launches``, ``tp_launches``, ``elmo_launches``,
+``tools_launches``),
 then the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -185,6 +196,16 @@ from cliora_tpu_torch.data import elmo
 from cliora_tpu_torch.data.embeddings import elmo_cache_path
 from cliora_tpu_torch.utils import flags as cli_flags
 from cliora_tpu_torch.utils.device_probe import card_info
+from cliora_tpu_torch.tools import (
+    autotune_buckets,
+    bench_bucketed,
+    bench_decode,
+    bench_l40,
+    bench_matmul_pad,
+    bench_serving,
+    mem_analysis,
+    profile_step,
+)
 
 B, N, D, E, V = 128, 20, 400, 1024, 10_000
 K_NEG, R, F = 100, 36, 2048        # bench.py:42
@@ -2000,7 +2021,10 @@ def train_path(rs):
                 "launches": graph_launches[name],
                 "launches_per_replayed_step_profiled": {
                     dt: graphs[dt]["launches_per_replayed_step_profiled"][
-                        name] for dt in graphs}},
+                        name] for dt in graphs},
+                "replayed_step_device_busy_ms": {
+                    dt: graphs[dt]["replayed_step_device_busy_ms"]
+                    for dt in graphs}},
         }
         extra = ("segments", "smem_floor_ms", "sm_clock_max_hz")
         entry.update({k: main[k] for k in extra if k in main})
@@ -2487,8 +2511,6 @@ REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-4, 2e-6
 # N(0, 1)-init model diverges at L=40 on a fixed batch (the unremated
 # run stops on a non-finite loss within its first steps)
 REMAT_LR = 1e-5
-# unremated peaks that calibrate the auto-remat copy factor, (B, n)
-REMAT_CALIBRATION = ((128, 20), (64, 40), (128, 40))
 ARCH_STEPS = 5
 ARCH_REQUESTS = 5
 CLI_ARCHS_TRAIN, CLI_ARCHS_TEST = 1024, 128
@@ -2723,8 +2745,9 @@ def remat_path(rs):
     B=128, L=40, unremated and under each remat variant, graphed (the
     main path: counters zeroed before, read after); each variant's loss
     and gradients against the unremated step; graphed remat against
-    eager remat bits; the unremated peaks that calibrate the auto-remat
-    copy factor.  Returns the main path's counters."""
+    eager remat bits.  (The unremated peaks that calibrate the
+    auto-remat copy factor are ``mem_analysis``'s, phase ``tools``.)
+    Returns the main path's counters."""
     t_phase = time.perf_counter()
     reserved = torch.cuda.memory_reserved()
     batch = {k: torch.as_tensor(v).to("cuda")
@@ -2817,24 +2840,6 @@ def remat_path(rs):
          train_batch(rs, B, REMAT_N, V, K_NEG, R, F).items()}
         for _ in range(3)])
 
-    # the calibration: unremated eager peaks at three shapes
-    cfg, tc = configs(None)
-    auto = dataclasses.replace(cfg, remat="auto")
-    calib = []
-    for b, n in REMAT_CALIBRATION:
-        peak = step_peak(cfg, tc, {
-            k: torch.as_tensor(v).to("cuda")
-            for k, v in train_batch(rs, b, n, V, K_NEG, R, F).items()})
-        rows = (n ** 3 - n) // 2
-        unit = b * D * rows * 2                  # bf16 chart bytes
-        calib.append({"batch": b, "n": n, "peak_bytes": peak,
-                      "chart_rows": rows, "copy_factor": peak / unit,
-                      "auto_remat_at_10gb": chart_pass.remat_enabled(
-                          auto, b, n, D)})
-    emit({"phase": "remat_calibration", "dtype": "bfloat16",
-          "port_copy_factor": chart_pass._ACT_COPY_FACTOR,
-          "budget_gb": auto.remat_budget_gb, "points": calib,
-          "max_copy_factor": max(c["copy_factor"] for c in calib)})
     emit({"phase": "remat_summary", "launches": launches,
           "reserved_bytes_at_start": reserved,
           "wall_seconds": time.perf_counter() - t_phase})
@@ -4739,12 +4744,27 @@ def elmo_vocab(rs, n):
     return sorted(words)
 
 
+@contextlib.contextmanager
+def torch_default_tf32():
+    """torch's default TF32 flags inside the block (cuDNN convolutions may
+    use TF32, matmuls may not), this script's after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = before
+
+
 def elmo_path():
     """Phase ``elmo``: the char-CNN at the published width on the card
     against the CPU over ELMO_WORDS words (words/s, peak memory), then the
-    train CLI with ``--emb elmo`` for one epoch on the ``cli`` corpus,
-    reading the cache this phase writes from in-memory weights (the card
-    has no ``h5py`` for ``load_weights``)."""
+    train CLI with ``--emb elmo`` for one epoch on the ``cli`` corpus with
+    no cache: the CLI writes it (``read_elmo`` on the card) under torch's
+    default TF32 flags, from in-memory weights (the card has no ``h5py``
+    for ``load_weights``), and the cache is held against the CPU's
+    vectors."""
     t_phase = time.perf_counter()
     rs = np.random.RandomState(SEED + 14)
     weights = elmo_weights(rs)
@@ -4778,22 +4798,40 @@ def elmo_path():
         with open(os.path.join(corpus, "flickr.dic.json")) as f:
             word2idx = json.load(f)
         cache = os.path.join(work, "elmo")
-        os.makedirs(cache)
         path = elmo_cache_path(cache, word2idx)
-        np.save(path, elmo.embed_with(weights, sorted(word2idx), device=dev))
+        # the CLI computes the missing cache itself (read_elmo, on the
+        # card), under torch's default TF32 flags rather than this
+        # script's; the weight files' loader hands it the in-memory
+        # weights (no h5py on the card)
         args = (with_flag(DIORA_FLAGS, "--emb", "elmo")
                 + ["--data_type", "flickr",
                    "--train_path", os.path.join(corpus, "flickr_train.json"),
                    "--validation_path",
                    os.path.join(corpus, "flickr_test.json"),
                    "--data_path", corpus + "/", "--elmo_cache_dir", cache,
+                   "--elmo_options_path", os.path.join(work, "options.json"),
+                   "--elmo_weights_path", os.path.join(work, "weights.hdf5"),
                    "--max_epoch", "1",
                    "--experiment_path", os.path.join(work, "exp")]
                 + CLI_RUN_FLAGS)
-        (tr, records), cli = run_cli("elmo", cli_train.main, args, None)
+        load_weights = elmo.load_weights
+        elmo.load_weights = lambda options, weights_file: weights
+        with torch_default_tf32():
+            try:
+                (tr, records), cli = run_cli("elmo", cli_train.main, args,
+                                             None)
+            finally:
+                elmo.load_weights = load_weights
+        cached = np.load(path)
+        want = elmo.embed_with(weights, sorted(word2idx), device="cpu")
         rec["cli"] = {**cli, "vocab": len(word2idx),
                       "input_size": tr.cfg.input_size,
                       "cache_files": os.listdir(cache),
+                      "cache_written_by": "read_elmo in the train CLI, "
+                                          "torch's default TF32 flags",
+                      "cache_vs_cpu_max_abs_err":
+                          float(np.abs(cached - want).max()),
+                      "cache_max_abs": float(np.abs(want).max()),
                       "epochs": records,
                       "epoch_log": cli_log_lines(os.path.join(work, "exp"),
                                                  "EPOCH-END")}
@@ -4801,11 +4839,199 @@ def elmo_path():
               and math.isfinite(records[0]["metrics"]["corpus_f1"])
               and os.listdir(cache) == [os.path.basename(path)],
               f"elmo cli: {rec['cli']}")
+        check(rec["cli"]["cache_vs_cpu_max_abs_err"]
+              <= ELMO_REL_TOL * rec["cli"]["cache_max_abs"],
+              f"elmo cli: the cache against the CPU {rec['cli']}")
         del tr
     rec["wall_seconds"] = time.perf_counter() - t_phase
     emit(rec)
     free_card()
     return {"cli": cli["launches"]}
+
+
+# -- phase tools: the port's measuring tools (cliora_tpu_torch/tools/) ------
+
+# profile_step's device ms a replayed bench step against train_graphs'
+TOOLS_BUSY_RTOL = 0.05
+# mem_analysis' measured copy factor at (128, 20) against _ACT_COPY_FACTOR
+TOOLS_FACTOR_RTOL = 0.15
+TOOLS_SENTENCES = 2000
+
+
+def run_tool(tool, module, argv):
+    """A tool's ``main(argv)`` in this process, its human lines kept apart
+    (quoted in the record), the kernel counters zeroed just before and
+    read just after.  Returns ``(its JSON line, the record)``."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    torch.cuda.synchronize()
+    lines = out.getvalue().strip().splitlines()
+    result = json.loads(lines[-1])
+    rec = {"phase": "tools", "tool": tool, "argv": argv,
+           "wall_seconds": time.perf_counter() - t0,
+           "launches": kernel_counts(), "lines": lines[:-1][-12:],
+           "result": result}
+    check("power_limit" in result and (result.get("device") != "cpu"
+                                       or tool == "bench_decode"),
+          f"tool {tool}: device {result}")
+    return result, rec
+
+
+def has_fields(result, *keys):
+    return all(k in result for k in keys)
+
+
+def tools_path(graph_busy_ms):
+    """Phase ``tools``: each measuring tool's entry at its smallest setting
+    that still goes through the card, its JSON line parsed and checked:
+    ``profile_step`` at the bench width (K2-K4 2 each a replayed step by
+    name, its device ms a step within TOOLS_BUSY_RTOL of train_graphs'
+    ``graph_busy_ms``), ``bench_bucketed`` (DIORA, 2,000 sentences, 2
+    buckets, mixed composition), ``autotune_buckets``' choice on those
+    probes and one of B=256, ``mem_analysis`` at (128, 20) (its measured
+    copy factor within TOOLS_FACTOR_RTOL of ``_ACT_COPY_FACTOR``), then,
+    beside one ``bench_l40`` child (``accum_2``) in a subprocess,
+    ``bench_serving`` at 32 x 10 (the live parse on K1), ``bench_decode``
+    (C and Python trees equal) and ``bench_matmul_pad`` at a tenth of the
+    rows, bf16 and f32.
+    Returns each tool's kernel counters."""
+    t_phase = time.perf_counter()
+    counts = {}
+
+    result, rec = run_tool("profile_step", profile_step,
+                           ["--steps", "3", "--top", "12"])
+    busy = result["device_ms_per_step"]
+    rec["train_graphs_busy_ms"] = graph_busy_ms
+    emit(rec)
+    counts["profile_step"] = rec["launches"]
+    hand = result["hand_kernels_per_step"]
+    check(all(hand[k] == 2 for k in SR_KERNELS) and hand["inside_cky"] == 0,
+          f"profile_step: hand kernels a replayed step {hand}")
+    check(isinstance(busy, float)
+          and abs(busy / graph_busy_ms - 1) <= TOOLS_BUSY_RTOL
+          and result["graph_launches_per_step"] == 1,
+          f"profile_step: device ms a step {busy} against train_graphs' "
+          f"{graph_busy_ms}")
+    check(all(rec["launches"][k] == 2 * (GRAPH_WARMUP_STEPS + 1)
+              for k in SR_KERNELS), f"profile_step: counters {rec}")
+    free_card()
+
+    # mixed composition: the L=40 bucket (remat under auto) gets batches
+    # too, which exact lengths of 2,000 sentences do not fill
+    result, rec = run_tool("bench_bucketed", bench_bucketed, [
+        "--sentences", str(TOOLS_SENTENCES), "--n_buckets", "2", "--mixed",
+        "--timed_calls", "1"])
+    emit(rec)
+    counts["bench_bucketed"] = rec["launches"]
+    bucketed = result
+    check(has_fields(result, "metric", "value", "unit", "buckets", "batch",
+                     "mixed", "covered_sentences", "dropped_sentences",
+                     "remat", "remat_frac", "steps_per_call", "per_bucket")
+          and len(result["buckets"]) == 2 and len(result["per_bucket"]) == 2
+          and [r["remat"] for r in result["per_bucket"].values()]
+          == [False, True]
+          and result["value"] > 0
+          and result["covered_sentences"] + result["dropped_sentences"]
+          == TOOLS_SENTENCES
+          and all(r["loss_finite"] for r in result["per_bucket"].values()),
+          f"bench_bucketed: {result}")
+    free_card()
+
+    # autotune's choice on the probes just measured (bench_bucketed's at
+    # B=128) and one probe of B=256 at the shortest bucket
+    t0 = time.perf_counter()
+    zero_counts()
+    edges = bucketed["buckets"]
+    probes = {}
+    for key, r in bucketed["per_bucket"].items():
+        L, b = (int(x) for x in key.split(":"))
+        probes[(L, b)] = {"B": b, "L": L, **r}
+    probes[(edges[0], 256)] = autotune_buckets.probe_one(
+        {"B": 256, "L": edges[0], "cliora": False, "steps_per_call": 10,
+         "timed_calls": 1, "remat_frac": 0.85}, torch.device("cuda", 0))
+    chosen, upsized = autotune_buckets.choose(probes, edges, 128, [128, 256],
+                                              0.05)
+    flags = autotune_buckets.flags_line(2, edges, chosen, upsized)
+    emit({"phase": "tools", "tool": "autotune_buckets",
+          "wall_seconds": time.perf_counter() - t0,
+          "probes": [{"L": L, "B": b, **r} for (L, b), r in probes.items()],
+          "chosen_batch": chosen, "flags": flags,
+          "launches": kernel_counts()})
+    counts["autotune_buckets"] = kernel_counts()
+    check(set(chosen) == set(edges)
+          and flags.startswith("--n_length_buckets 2 --length_buckets "
+                               + ",".join(str(e) for e in edges)),
+          f"autotune_buckets: {chosen} {flags}")
+    free_card()
+
+    result, rec = run_tool("mem_analysis", mem_analysis,
+                           [json.dumps({"B": 128, "L": 20})])
+    emit(rec)
+    counts["mem_analysis"] = rec["launches"]
+    factor = result["measured_factor"]
+    check(abs(factor / chart_pass._ACT_COPY_FACTOR - 1) <= TOOLS_FACTOR_RTOL
+          and result["loss_finite"]
+          and all(rec["launches"][k] == 2 for k in SR_KERNELS),
+          f"mem_analysis: {result}, counters {rec['launches']}")
+    free_card()
+
+    # one bench_l40 child (accum_2) as a subprocess, to prove the child
+    # mode; it runs beside the three tools below, so that its time and
+    # theirs are not measurements
+    t0 = time.perf_counter()
+    proc = bench_l40.start_child(bench_l40.CONFIGS[1], "cuda:0")
+    try:
+        result, rec = run_tool("bench_serving", bench_serving, [
+            "--batch", "32", "--length", "10", "--steps", "5"])
+        emit(rec)
+        counts["bench_serving"] = rec["launches"]
+        check(has_fields(result, "export_s", "load_s", "warmup_s",
+                         "bundle_ms_per_batch", "live_ms_per_batch",
+                         "trees_equal")
+              and result["parse_impl"] == "cuda"
+              and result["eager_calls"] == 0
+              and rec["launches"]["inside_cky"] >= 1
+              and result["trees_equal"] >= 0.9 * 32,
+              f"bench_serving: {result}, counters {rec['launches']}")
+        free_card()
+
+        result, rec = run_tool("bench_decode", bench_decode, ["--reps", "5"])
+        emit(rec)
+        check(result.get("trees_equal") is True
+              and result["decoders"] == {"native_C": "native",
+                                         "python": "python"},
+              f"bench_decode: {result}")
+
+        for dtype in ("bfloat16", "float32"):
+            result, rec = run_tool("bench_matmul_pad", bench_matmul_pad, [
+                "--rows", "17024", "--steps", "10", "--dtype", dtype])
+            emit(rec)
+            check(all(result[k]["ms"] > 0 for k in
+                      ("d400", "d512", "d400_padded_512")),
+                  f"bench_matmul_pad {dtype}: {result}")
+        free_card()
+        child = bench_l40.child_result(proc, bench_l40.CONFIGS[1],
+                                       timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    emit({"phase": "tools", "tool": "bench_l40", "child": True,
+          "beside": ["bench_serving", "bench_decode", "bench_matmul_pad"],
+          "wall_seconds": time.perf_counter() - t0, "result": child})
+    check(child.get("config") == "accum_2" and child["error"] is None
+          and child["ms_per_step"] > 0 and child["loss_finite"],
+          f"bench_l40 child: {child}")
+    total = {k: sum(c[k] for c in counts.values()) for k in kernel_counts()}
+    check(all(v >= 1 for v in total.values()),
+          f"the tools skipped a kernel: {total}")
+    emit({"phase": "tools_summary", "launches": total,
+          "wall_seconds": time.perf_counter() - t_phase})
+    return counts
 
 
 def main():
@@ -4878,7 +5104,13 @@ def main():
     free_card()
     elmo_counts = elmo_path()
     free_card()
+    graph_busy = next(e for e in entries if e["name"] == "span_region_fwd")[
+        "graphed"]["replayed_step_device_busy_ms"]["bfloat16"]
+    tools_counts = tools_path(graph_busy)
+    free_card()
     for entry in entries:
+        entry["tools_launches"] = {tool: counts[entry["name"]]
+                                   for tool, counts in tools_counts.items()}
         entry["tp_launches"] = {stage: counts[entry["name"]]
                                 for stage, counts in tp_counts.items()}
         entry["elmo_launches"] = {stage: counts[entry["name"]]

@@ -9,11 +9,13 @@ vocab word is embedded independently, so sentence-boundary handling
 reduces to the special ``<S>``/``</S>`` char sequences.  The
 convolutions and GEMMs are library calls, as the JAX package leaves
 them to XLA; :func:`embed_tokens` runs on the card unless asked for the
-CPU.
+CPU.  The convolutions run without TF32 (:func:`encode_chars`), so the
+card's vectors keep f32 agreement with the CPU's and the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import Dict, List
 
@@ -126,22 +128,41 @@ def to_device(weights: Dict, device) -> Dict:
     }
 
 
+@contextlib.contextmanager
+def _f32_convolutions():
+    """cuDNN's convolutions in full f32 inside the block.  torch runs them
+    in TF32 by default (``torch.backends.cudnn.allow_tf32`` is True),
+    which keeps 10 mantissa bits; the caller's setting is restored after.
+    (``torch.backends.cudnn.flags`` would also reset the flags it is not
+    given, ``enabled`` among them.)  The setting is the process's, so a
+    convolution on another thread inside the block runs without TF32
+    too."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
+
+
 def encode_chars(weights: Dict, char_ids: torch.Tensor) -> torch.Tensor:
     """(N, 50) raw char ids (pre-shift) -> (N, out_dim) embeddings, f32.
 
     ``weights``: :func:`to_device`'s dict on ``char_ids``' device.  Char
     table lookup with the +1 shift, one valid convolution per filter
-    width (bias added) with a max over positions and the activation,
-    highways ``g * h + (1 - g) * relu(h W_t + b_t)`` with the sigmoid
-    gate ``g`` of the flipped carry weights, then the projection.
-    (cliora_tpu/data/elmo.py:106-135)
+    width (bias added, without TF32 on the card) with a max over
+    positions and the activation, highways ``g * h + (1 - g) * relu(h W_t
+    + b_t)`` with the sigmoid gate ``g`` of the flipped carry weights,
+    then the projection.  (cliora_tpu/data/elmo.py:106-135)
     """
     act = torch.tanh if weights["activation"] == "tanh" else torch.relu
     x = weights["table"][char_ids.long() + 1]           # (N, 50, E)
     x = x.transpose(1, 2)                               # (N, E, 50)
     feats = []
     for conv in weights["convs"]:
-        y = torch.nn.functional.conv1d(x, conv["w"], conv["b"])
+        with _f32_convolutions():
+            y = torch.nn.functional.conv1d(x, conv["w"], conv["b"])
         feats.append(act(torch.amax(y, dim=-1)))        # (N, num)
     h = torch.cat(feats, dim=-1)
     for hw in weights["highways"]:

@@ -85,11 +85,12 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # Stored (rows, D) chart-dtype copies per gathered child row of an
 # unremated train step, the factor of the "auto" estimate below: an
 # eager bf16 CLIORA step's peak above the trainer over B*D*(n^3-n)/2
-# chart bytes, measured on an H100 by chip_smoke.py's ``remat`` phase at
-# (B, n) = (128, 20), (64, 40), (128, 40): 8.63, 7.77, 7.70 (PERF.md
-# section 6); the largest, rounded up.  (The JAX package's 5.6,
+# chart bytes, measured on an H100 by tools/mem_analysis.py at (B, n) =
+# (128, 20), (64, 40), (128, 40): 8.79, 7.81, 7.73 (chip_smoke.py's
+# ``remat`` phase read 8.63, 7.77, 7.70 on other batches; PERF.md section
+# 6); the largest, rounded up.  (The JAX package's 5.6,
 # cliora_tpu/ops/chart_pass.py:91, was measured on its own device.)
-_ACT_COPY_FACTOR = 8.7
+_ACT_COPY_FACTOR = 8.8
 
 
 def remat_enabled(cfg: ModelConfig, B: int, n: int, D: int) -> bool:
@@ -106,10 +107,23 @@ def remat_enabled(cfg: ModelConfig, B: int, n: int, D: int) -> bool:
         return True
     if not cfg.remat:
         return False
+    return activation_estimate_bytes(cfg, B, n, D) > (
+        cfg.remat_budget_gb * 2 ** 30)
+
+
+def chart_bytes(cfg: ModelConfig, B: int, n: int, D: int) -> int:
+    """Bytes of one chart-dtype copy of the gathered children of both
+    passes of a (B, n) batch: (n^3 - n)/2 rows of D, inside (n^3-n)/6 and
+    outside (n^3-n)/3."""
     itemsize = 2 if cfg.compute_dtype == "bfloat16" else 4
-    rows = (n ** 3 - n) // 2     # inside (n^3-n)/6 + outside (n^3-n)/3
-    est = _ACT_COPY_FACTOR * B * D * rows * itemsize
-    return est > cfg.remat_budget_gb * 2 ** 30
+    return B * D * ((n ** 3 - n) // 2) * itemsize
+
+
+def activation_estimate_bytes(cfg: ModelConfig, B: int, n: int,
+                              D: int) -> float:
+    """The "auto" estimate of an unremated step's stored activations:
+    ``_ACT_COPY_FACTOR`` times :func:`chart_bytes`."""
+    return _ACT_COPY_FACTOR * chart_bytes(cfg, B, n, D)
 
 
 def _remat_level(cfg: ModelConfig, enabled: bool, cells: int,

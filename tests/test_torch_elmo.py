@@ -12,7 +12,9 @@ cliora_tpu/data/embeddings.py:120-150), on the CPU.
   name in its ``.npy`` format (the same header bytes; the vectors within
   1e-5), each package reads the other's cache to the same vectors, and a
   cache that exists is read, not recomputed;
-* ``--emb elmo`` through the port's train CLI for one step.
+* ``--emb elmo`` through the port's train CLI for one step;
+* on a machine with a card only: ``embed_with`` under torch's default
+  TF32 flags against the CPU (the convolutions run without TF32).
 """
 
 import json
@@ -190,3 +192,55 @@ def test_train_cli_emb_elmo(small_files, tmp_path):
     assert trainer.cfg.input_size == 1024
     assert len(os.listdir(cache)) == 1
     assert all(np.isfinite(v) for v in records[0]["metrics"].values())
+
+
+def _memory_weights(rs, filters, n_highway, char_dim=16, out_dim=512,
+                    scale=0.1):
+    """Random char-CNN weights in ``load_weights``' form, built in memory
+    (the card's machine has no ``h5py``): row 0 of the char table is the
+    zero mask row."""
+    def f(*shape):
+        return (scale * rs.randn(*shape)).astype(np.float32)
+
+    table = f(263, char_dim)
+    table[0] = 0.0
+    n = sum(num for _, num in filters)
+    return {"table": table,
+            "convs": [{"w": f(w, char_dim, num), "b": f(num), "width": w}
+                      for w, num in filters],
+            "highways": [{"w_t": f(n, n), "b_t": f(n), "w_c": f(n, n),
+                          "b_c": f(n)} for _ in range(n_highway)],
+            "proj": {"w": f(n, out_dim), "b": f(out_dim)},
+            "activation": "relu", "out_dim": out_dim}
+
+
+@pytest.fixture
+def card_with_torch_defaults():
+    """A CUDA card, with torch's default TF32 flags for the test (cuDNN
+    convolutions may use TF32, matmuls may not) whatever an earlier test
+    of the process set; the flags are restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the TF32 flag acts on the card only")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    yield torch.device("cuda")
+    cudnn.allow_tf32, matmul.allow_tf32 = before
+
+
+def test_embed_with_on_the_card_keeps_f32(card_with_torch_defaults):
+    """``embed_with`` on the card under torch's default flags, at the
+    published width: the vectors agree with the CPU's within 1e-4 of the
+    largest value (the cache's 1e-5 contract holds only without TF32),
+    and the caller's cuDNN setting is left as it was."""
+    rs = np.random.RandomState(14)
+    weights = _memory_weights(rs, PUBLISHED, 2)
+    letters = list("abcdefghijklmnopqrstuvwxyz") + ["é", "ß", "ж", "語"]
+    words = sorted({"".join(rs.choice(letters, rs.randint(1, 21)))
+                    for _ in range(2000)})
+    assert torch.backends.cudnn.allow_tf32
+    card = elmo.embed_with(weights, words, device=card_with_torch_defaults)
+    assert torch.backends.cudnn.allow_tf32
+    cpu = elmo.embed_with(weights, words, device="cpu")
+    assert card.shape == cpu.shape == (len(words), 512)
+    assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()
