@@ -100,6 +100,25 @@ width with random weights from a seed:
     (128, 20) (its copy factor against ``_ACT_COPY_FACTOR``),
     ``bench_serving`` at 32 x 10 (the live parse on K1),
     ``bench_decode`` and ``bench_matmul_pad``;
+  * bench.py's counterpart (phase ``bench``, tools/bench.py): its
+    ``run`` at full width, its sentences/s within BENCH_VALUE_RTOL of 128
+    over ``train_graphs``' graphed bf16 step, its FLOP count equal under
+    the f32 config and the ``einsum`` route, its MFU in (0, 1) and equal
+    to its own fields;
+  * the README's two demonstrations through the train CLI (phase
+    ``learn``) at the README's flags and depth: grammar induction on
+    tools/make_synthetic_ptb.py's corpus (3,000 / 500 sentences, 60
+    epochs; K1 in every eval) from the JAX package's initial model of the
+    README command (tests/data/grammar_jax_init.npz: the port's seed
+    draws another model), whose best corpus F1 must beat right-branching
+    on the same validation split, and phrase grounding on
+    tools/make_synthetic_flickr.py's (2,000 / 400, 20 epochs) under
+    ``--attn_impl cuda`` (K2-K4), whose best Recall@1 must reach
+    LEARN_RECALL_MIN; ``--steps_per_call 10`` replays one graph a bucket
+    on the README's batch order (the eager command's bits).  ``python3
+    chip_smoke.py --demo grammar,grounding_chunked,grounding_cuda
+    [--seeds ...] [--flags ...]`` runs the demonstrations alone,
+    eagerly as the README's commands by default;
 
 checks the parses, the losses and their descent, the kernel route
 against the plain ``chunked`` route and a small step against the CPU,
@@ -125,7 +144,7 @@ build fails if that K4 kernel spills.
 Prints one JSON object per phase, then the ``kernels`` summary (each
 kernel's launches on the main paths, by phase and stage: ``cli_launches``,
 ``arch_launches``, ``dp_launches``, ``tp_launches``, ``elmo_launches``,
-``tools_launches``),
+``tools_launches``, ``bench_launches``, ``learn_launches``),
 then the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -133,6 +152,7 @@ before the last line; without a CUDA device it exits non-zero at once.
 No check falls back to the CPU.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -156,7 +176,7 @@ import torch.distributed as dist
 
 from cliora_tpu_torch import kernels, native, serving
 from cliora_tpu_torch.analysis import trees
-from cliora_tpu_torch.analysis.eval import run_eval
+from cliora_tpu_torch.analysis.eval import right_branching_f1, run_eval
 from cliora_tpu_torch.analysis.grounding import ground_phrases, span_pred_boxes
 from cliora_tpu_torch.chart.offsets import ncells
 from cliora_tpu_torch.data.prefetch import device_prefetch
@@ -196,6 +216,7 @@ from cliora_tpu_torch.data import elmo
 from cliora_tpu_torch.data.embeddings import elmo_cache_path
 from cliora_tpu_torch.utils import flags as cli_flags
 from cliora_tpu_torch.utils.device_probe import card_info
+from cliora_tpu_torch.tools import bench as tool_bench
 from cliora_tpu_torch.tools import (
     autotune_buckets,
     bench_bucketed,
@@ -2024,7 +2045,9 @@ def train_path(rs):
                         name] for dt in graphs},
                 "replayed_step_device_busy_ms": {
                     dt: graphs[dt]["replayed_step_device_busy_ms"]
-                    for dt in graphs}},
+                    for dt in graphs},
+                "graphed_step_ms": {dt: graphs[dt]["graphed_step_ms"]
+                                    for dt in graphs}},
         }
         extra = ("segments", "smem_floor_ms", "sm_clock_max_hz")
         entry.update({k: main[k] for k in extra if k in main})
@@ -3514,28 +3537,52 @@ def k1_agreement(trainer, sents, direct):
             "routes": sorted(routes)}
 
 
-def serve_path():
-    """Phase ``serve``: export (four processes at once) -> load -> CUDA
-    graphs -> parse traffic -> the HTTP server -> a restarted server ->
-    the CLIORA bundle.  Launches none of K1-K4 (the serving route is the
-    plain chart pass with ``lengths``, as under the JAX gating); returns
-    the counters' moves."""
-    t_phase = time.perf_counter()
+def serve_start():
+    """The serve phase's exports, started early: its vocabulary corpus and
+    CLIORA weights written to a temporary directory and the four export
+    processes started (:func:`start_exports`), so that they trace while
+    the card-bound phases before ``serve`` run.  Returns the state
+    :func:`serve_path` takes; :func:`serve_stop` ends it."""
+    work = tempfile.TemporaryDirectory()
     rs = np.random.RandomState(SEED + 2)
+    corpus = os.path.join(work.name, "vocab.txt")
+    write_vocab_corpus(corpus, V)
+    # the CLIORA bundle's weights: the train step's model with its image
+    # encoder moved off its zero init
+    cfg, tc = train_configs("float32")
+    flat = perturbed(Trainer.build(cfg, tc, V, seed=SEED).params, rs)
+    flat_npz = os.path.join(work.name, "cliora_init.npz")
+    np.savez(flat_npz, **flat)
+    return {"work": work, "rs": rs, "corpus": corpus, "flat": flat,
+            "configs": (cfg, tc), "t0": time.perf_counter(),
+            "jobs": start_exports(work.name, corpus, flat_npz)}
+
+
+def serve_stop(started):
+    """Kill any export still running and remove the phase's directory."""
+    for proc, _, _ in started["jobs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    started["work"].cleanup()
+
+
+def serve_path(started):
+    """Phase ``serve``: export (four processes, started by
+    :func:`serve_start`) -> load -> CUDA graphs -> parse traffic -> the
+    HTTP server -> a restarted server -> the CLIORA bundle.  Launches
+    none of K1-K4 (the serving route is the plain chart pass with
+    ``lengths``, as under the JAX gating); returns the counters' moves."""
+    t_phase = time.perf_counter()
+    rs, corpus, flat = started["rs"], started["corpus"], started["flat"]
+    cfg, tc = started["configs"]
+    work = started["work"].name
+    jobs = started["jobs"]
     before = kernel_counts()
-    with tempfile.TemporaryDirectory() as work:
-        corpus = os.path.join(work, "vocab.txt")
-        write_vocab_corpus(corpus, V)
-        # the CLIORA bundle's weights: the train step's model with its
-        # image encoder moved off its zero init
-        cfg, tc = train_configs("float32")
-        flat = perturbed(Trainer.build(cfg, tc, V, seed=SEED).params, rs)
-        flat_npz = os.path.join(work, "cliora_init.npz")
-        np.savez(flat_npz, **flat)
-        t0 = time.perf_counter()
-        jobs = start_exports(work, corpus, flat_npz)
+    try:
         timings = finish_exports(jobs, timeout=900)
-        export_wall = time.perf_counter() - t0
+        export_wall = time.perf_counter() - started["t0"]
+        export_wait = time.perf_counter() - t_phase
         bundles = {key: bundle for key, (_, bundle, _) in jobs.items()}
 
         # the text model again: export_model's seed gives the same weights
@@ -3561,6 +3608,7 @@ def serve_path():
         moved = {k: after[k] - before[k] for k in after}
         emit({"phase": "serve_summary", "launches": moved,
               "export_wall_seconds_four_processes": export_wall,
+              "export_wait_seconds": export_wait,
               "wall_seconds": time.perf_counter() - t_phase,
               "micro_batched": http_rec["micro_batched"],
               "serialized": http_rec["serialized"],
@@ -3570,6 +3618,8 @@ def serve_path():
         check(all(v == 0 for v in moved.values()),
               f"the serve phase launched a hand kernel: {moved}")
         emit(k1_agreement(text_trainer, sents, direct))
+    finally:
+        serve_stop(started)
     return moved
 
 
@@ -5034,6 +5084,253 @@ def tools_path(graph_busy_ms):
     return counts
 
 
+# -- phase bench: tools/bench.py, the port's counterpart of bench.py -------
+# its sentences/s against 128 over train_graphs' graphed bf16 step ms
+BENCH_VALUE_RTOL = 0.10
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "step_ms",
+                "eager_pipelined_step_ms", "capture_s", "idle_share",
+                "step_flops", "mfu_vs_h100_bf16_peak", "device",
+                "power_limit", "max_memory_allocated_bytes")
+
+
+def bench_path(graph_step_ms):
+    """Phase ``bench``: ``tools/bench.py``'s ``run`` at bench.py's width
+    (the kernel counters zeroed just before and read just after), its
+    line held to train_graphs' graphed bf16 step (``graph_step_ms``) and
+    its MFU to its own fields; the step's FLOP count again under the f32
+    config and under the ``einsum`` route, which must read the same.
+    Returns the counters."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = tool_bench.run()
+    launches = kernel_counts()
+    free_card()
+    flops = {"bfloat16_chunked": result["step_flops"]}
+    for dtype, impl in (("float32", "chunked"), ("bfloat16", "einsum")):
+        flops[f"{dtype}_{impl}"] = tool_bench.step_flops(dtype=dtype,
+                                                         attn_impl=impl)
+        free_card()
+    want = 1e3 * B / graph_step_ms
+    mfu = result["mfu_vs_h100_bf16_peak"]
+    emit({"phase": "bench", "result": result,
+          "train_graphs_step_ms": graph_step_ms,
+          "value_over_train_graphs": result["value"] / want,
+          "step_flops_by_config": flops, "launches": launches,
+          "wall_seconds": time.perf_counter() - t_phase})
+    check(has_fields(result, *BENCH_FIELDS) and "error" not in result
+          and result["metric"] == tool_bench.METRIC
+          and result["unit"] == tool_bench.UNIT,
+          f"bench: fields {sorted(result)}")
+    check(abs(result["value"] / want - 1) <= BENCH_VALUE_RTOL,
+          f"bench: {result['value']} sentences/s against {want} from "
+          f"train_graphs' {graph_step_ms} ms")
+    check(len(set(flops.values())) == 1 and flops["bfloat16_chunked"] > 0,
+          f"bench: step FLOPs differ by config {flops}")
+    check(mfu is not None and 0 < mfu < 1 and math.isclose(
+        mfu, result["step_flops"] / (result["step_ms"] / 1e3)
+        / tool_bench.H100_BF16_PEAK, rel_tol=1e-12),
+        f"bench: MFU {mfu} from {result}")
+    want_sr = 2 * (GRAPH_WARMUP_STEPS + 1 + tool_bench.EAGER_STEPS)
+    check(all(launches[k] == want_sr for k in SR_KERNELS)
+          and launches["inside_cky"] == 0,
+          f"bench: counters {launches}, expected {want_sr} of each of "
+          f"K2-K4 (2 a warm-up step, the capture and each eager step) "
+          f"and no K1")
+    return {"bench": launches}
+
+
+# -- phase learn: the README's two demonstrations through the train CLI ---
+# README.md's commands (its "Reproducible demonstrations"), paths aside:
+# grammar induction on tools/make_synthetic_ptb.py's corpus, DIORA text
+# (K1 in every epoch's eval), and phrase grounding on
+# tools/make_synthetic_flickr.py's, CLIORA (K2-K4 under --attn_impl cuda)
+LEARN_PTB = (3000, 500)
+LEARN_FLICKR = (2000, 400)
+GRAMMAR_FLAGS = ["--data_type", "ptb", "--emb", "w2v", "--batch_size", "64",
+                 "--hidden_dim", "128", "--k_neg", "50", "--lr", "1e-3",
+                 "--max_epoch", "60", "--n_length_buckets", "4"]
+GROUNDING_FLAGS = ["--data_type", "flickr", "--emb", "w2v", "--obj_feats",
+                   "--vg_loss", "--use_contr", "--attn_impl", "chunked",
+                   "--bf16", "--batch_size", "64", "--hidden_dim", "128",
+                   "--k_neg", "50", "--lr", "1e-3", "--max_epoch", "20",
+                   "--n_length_buckets", "4"]
+DEMOS = ("grammar", "grounding_chunked", "grounding_cuda")
+# the phase's dispatch: same-shape runs of the README's shuffled batch
+# order through Trainer.steps (one captured graph a bucket, replayed);
+# a graphed step leaves the bits of an eager one (train_graphs), so the
+# curves are the README command's
+LEARN_DISPATCH = ["--steps_per_call", "10"]
+# the grounding demonstration's least best Recall@1 (the JAX package:
+# 0.627 at its best epoch, 0.137 at epoch 0; chance ~0.10)
+LEARN_RECALL_MIN = 0.40
+# The grammar run starts from the JAX package's initial model of the
+# README command (its default seed; written by tests/torch_demo_init.py).
+# The port's generator draws another model for the same seed, and this
+# demonstration clears right-branching from some draws and not others in
+# either package (PERF.md section 6; ROADMAP.md C5): from the same
+# start the port must learn as the JAX package does
+GRAMMAR_JAX_INIT = os.path.join(ROOT, "tests", "data",
+                                "grammar_jax_init.npz")
+
+
+def learn_corpora(work):
+    """The two demonstrations' corpora under ``work``: the PTB-format
+    one by tools/make_synthetic_ptb.py, the grounded one as
+    :func:`synthetic_flickr` writes it.  Returns ``{"ptb", "flickr",
+    "arrays", "route"}``."""
+    ptb = os.path.join(work, "synth")
+    subprocess.run([sys.executable,
+                    os.path.join(ROOT, "tools", "make_synthetic_ptb.py"),
+                    ptb, *(str(n) for n in LEARN_PTB)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    flickr = os.path.join(work, "synthvg")
+    arrays, route = synthetic_flickr(flickr, *LEARN_FLICKR)
+    return {"ptb": ptb, "flickr": flickr, "arrays": arrays, "route": route}
+
+
+def demo_args(demo, corpora, exp):
+    """The README command's flags of ``demo`` with its paths here
+    (``grounding_cuda``: ``--attn_impl cuda``)."""
+    if demo == "grammar":
+        ptb = corpora["ptb"]
+        return GRAMMAR_FLAGS + [
+            "--embeddings_path", os.path.join(ptb, "glove.txt"),
+            "--train_path", os.path.join(ptb, "train.pkl"),
+            "--validation_path", os.path.join(ptb, "valid.pkl"),
+            "--experiment_path", exp]
+    vg = corpora["flickr"]
+    return with_flag(GROUNDING_FLAGS, "--attn_impl",
+                     demo.split("_")[1]) + [
+        "--embeddings_path", os.path.join(vg, "glove.txt"),
+        "--train_path", os.path.join(vg, "flickr_train.json"),
+        "--validation_path", os.path.join(vg, "flickr_test.json"),
+        "--data_path", vg + "/", "--experiment_path", exp]
+
+
+def run_demo(demo, corpora, work, extra=()):
+    """One demonstration through ``scripts/train.py``'s ``main`` in this
+    process: its per-epoch curve, the right-branching baseline of its
+    validation split by the eval's own scorer, its best epochs, whether
+    it passed, and the kernel counters of the run (checked)."""
+    grounding = demo != "grammar"
+    exp = tempfile.mkdtemp(prefix=f"exp_{demo}_", dir=work)
+    args = demo_args(demo, corpora, exp) + list(extra)
+    options = cli_flags.parse_args(cli_flags.argument_parser(), args)
+    arrays = corpora["arrays"] if grounding else None
+    baseline = right_branching_f1(cli_common.get_validation_iterator(
+        options, cli_common.get_validation_dataset(options),
+        region_features=arrays and arrays["test"]), seed=options.seed)
+    n_eval = 0 if grounding else cli_eval_batches(args)
+    (tr, records), rec = run_cli("learn_" + demo, cli_train.main, args,
+                                 arrays)
+    curve = [{"epoch": r["epoch"], "corpus_f1": r["metrics"]["corpus_f1"],
+              "sent_f1": r["metrics"]["sent_f1"],
+              "recall_at_1": r["metrics"]["grounding_acc"],
+              "wall_s": r["wall_s"], "eval_wall_s": r["eval_wall_s"],
+              "sents_per_s": r["sents_per_s"]} for r in records]
+    best_f1 = max(curve, key=lambda r: r["corpus_f1"])
+    best_r1 = max(curve, key=lambda r: r["recall_at_1"])
+    passed = (best_r1["recall_at_1"] >= LEARN_RECALL_MIN if grounding
+              else best_f1["corpus_f1"] > baseline["corpus_f1"])
+    graphs = len(tr._graphs)
+    steps = (sum(tr._warmed.values()) + graphs if graphs
+             else tr._host_step)
+    rec.update({
+        "phase": "learn", "demo": demo, "seed": options.seed,
+        "steps_per_call": options.steps_per_call,
+        "load_model_path": options.load_model_path,
+        "corpus": LEARN_FLICKR if grounding else LEARN_PTB,
+        "corpus_route": corpora["route"] if grounding else "pickle",
+        "right_branching": baseline, "curve": curve,
+        "best_corpus_f1": best_f1["corpus_f1"],
+        "best_corpus_f1_epoch": best_f1["epoch"],
+        "best_recall_at_1": best_r1["recall_at_1"],
+        "best_recall_at_1_epoch": best_r1["epoch"],
+        "recall_at_1_epoch0": curve[0]["recall_at_1"],
+        "graphs": graphs, "host_step": tr._host_step,
+        "eager_or_capture_steps": steps, "passed": passed})
+    del tr
+    free_card()
+    sr = 2 * steps if demo == "grounding_cuda" else 0
+    check(all(rec["launches"][k] == sr for k in SR_KERNELS)
+          and rec["launches"]["inside_cky"] == n_eval * len(curve),
+          f"learn {demo}: counters {rec['launches']}, expected {sr} of "
+          f"each of K2-K4 and {n_eval} K1 an epoch")
+    check(all(math.isfinite(v) for r in curve for v in r.values()
+              if isinstance(v, float)), f"learn {demo}: curve {curve}")
+    return rec
+
+
+def learn_path():
+    """Phase ``learn``: the grammar demonstration from GRAMMAR_JAX_INIT
+    (its best corpus F1 above right-branching on the same split) and the
+    grounding one under ``--attn_impl cuda`` at the CLI's default seed
+    (its best Recall@1 at least LEARN_RECALL_MIN), at the README's depth,
+    graphed (LEARN_DISPATCH).  Returns each run's kernel counters."""
+    t_phase = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as work:
+        corpora = learn_corpora(work)
+        recs = [run_demo("grammar", corpora, work, LEARN_DISPATCH + [
+                    "--load_model_path", GRAMMAR_JAX_INIT]),
+                run_demo("grounding_cuda", corpora, work, LEARN_DISPATCH)]
+    for rec in recs:
+        emit(rec)
+        counts[rec["demo"]] = rec["launches"]
+    emit({"phase": "learn_summary", "launches": counts,
+          "wall_seconds": time.perf_counter() - t_phase})
+    for rec in recs:
+        check(rec["passed"],
+              f"learn {rec['demo']}: best corpus F1 {rec['best_corpus_f1']} "
+              f"(right-branching {rec['right_branching']}), best "
+              f"Recall@1 {rec['best_recall_at_1']}")
+    return counts
+
+
+def demo_main(argv):
+    """``chip_smoke.py --demo grammar,grounding_chunked,grounding_cuda
+    [--seeds 11,12,13] [--flags '...']``: the named demonstrations, each
+    at each seed, as the README's commands run them (one step a dispatch
+    unless ``--flags`` adds ``--steps_per_call``), one JSON record each
+    and a summary.  Exits 1 if a run fell short of its bar."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --demo")
+    ap.add_argument("demos")
+    ap.add_argument("--seeds", default=None,
+                    help="comma-separated --seed values (the CLI's "
+                         "default if not given)")
+    ap.add_argument("--flags", default="",
+                    help="more train CLI flags for every run, e.g. "
+                         "'--steps_per_call 10' or '--load_model_path "
+                         "init.npz'")
+    args = ap.parse_args(argv)
+    demos = args.demos.split(",")
+    check(set(demos) <= set(DEMOS), f"demos are {DEMOS}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build(SOURCES, force=True)
+    emit({"phase": "env", "torch": torch.__version__,
+          "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line()})
+    seeds = [None] if args.seeds is None else args.seeds.split(",")
+    summary = []
+    with tempfile.TemporaryDirectory() as work:
+        corpora = learn_corpora(work)
+        for demo in demos:
+            for seed in seeds:
+                extra = (([] if seed is None else ["--seed", seed])
+                         + args.flags.split())
+                rec = run_demo(demo, corpora, work, extra)
+                emit(rec)
+                summary.append({k: rec[k] for k in (
+                    "demo", "seed", "steps_per_call", "best_corpus_f1",
+                    "best_corpus_f1_epoch", "best_recall_at_1",
+                    "best_recall_at_1_epoch", "passed", "wall_seconds")})
+    emit({"phase": "demo_summary", "runs": summary})
+    return 0 if all(r["passed"] for r in summary) else 1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5041,6 +5338,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--demo"]:
+        return demo_main(sys.argv[2:])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # the plain versions are the reference: full f32 matmuls, no TF32
@@ -5088,15 +5387,22 @@ def main():
     free_card()
     cli, cli_sents = cli_path()
     free_card()
-    archs = {"treelstm": treelstm_path(np.random.RandomState(SEED + 3))}
-    free_card()
-    archs["remat"] = remat_path(np.random.RandomState(SEED + 4))
-    free_card()
-    archs["word"] = word_path(np.random.RandomState(SEED + 5))
-    free_card()
-    cli_archs = cli_archs_path()
-    free_card()
-    cli["serve"] = serve_path()
+    # the serve phase's exports trace on the host while the card-bound
+    # phases before it run
+    serving = serve_start()
+    try:
+        archs = {"treelstm": treelstm_path(np.random.RandomState(SEED + 3))}
+        free_card()
+        archs["remat"] = remat_path(np.random.RandomState(SEED + 4))
+        free_card()
+        archs["word"] = word_path(np.random.RandomState(SEED + 5))
+        free_card()
+        cli_archs = cli_archs_path()
+        free_card()
+    except BaseException:
+        serve_stop(serving)
+        raise
+    cli["serve"] = serve_path(serving)
     free_card()
     dp_counts = dp_path(cli_sents)
     free_card()
@@ -5108,7 +5414,17 @@ def main():
         "graphed"]["replayed_step_device_busy_ms"]["bfloat16"]
     tools_counts = tools_path(graph_busy)
     free_card()
+    bench_counts = bench_path(next(
+        e for e in entries if e["name"] == "span_region_fwd")["graphed"][
+            "graphed_step_ms"]["bfloat16"])
+    free_card()
+    learn_counts = learn_path()
+    free_card()
     for entry in entries:
+        entry["bench_launches"] = {stage: counts[entry["name"]]
+                                   for stage, counts in bench_counts.items()}
+        entry["learn_launches"] = {stage: counts[entry["name"]]
+                                   for stage, counts in learn_counts.items()}
         entry["tools_launches"] = {tool: counts[entry["name"]]
                                    for tool, counts in tools_counts.items()}
         entry["tp_launches"] = {stage: counts[entry["name"]]

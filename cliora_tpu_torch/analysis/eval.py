@@ -17,7 +17,11 @@ import numpy as np
 import torch.distributed as dist
 
 from cliora_tpu_torch.analysis.grounding import GroundingMeter, ground_phrases
-from cliora_tpu_torch.analysis.trees import F1Meter, decode_batch
+from cliora_tpu_torch.analysis.trees import (
+    F1Meter,
+    decode_batch,
+    tree_to_spans,
+)
 from cliora_tpu_torch.parallel.mesh import is_multiprocess
 
 
@@ -113,6 +117,34 @@ def run_eval(trainer, iterator, seed: int = 11,
         "grounding_acc": grounding.recall,
         "ccra": grounding.ccra,
     }
+
+
+def right_branching_f1(iterator, seed: int = 11) -> Dict[str, float]:
+    """corpus_f1 / sent_f1 of right-branching trees over the rows
+    :func:`run_eval` scores, with its scorer: sentences of length <= 2
+    skipped, the root span dropped from both sides.  The baseline a
+    grammar-induction run must beat on the same split.
+    (scripts/right_branch.py keeps the reference's count, which takes every
+    gold span as recalled and so reads corpus F1 1.0 by construction.)"""
+    f1 = F1Meter()
+    for batch_map in iterator.get_iterator(random_seed=seed):
+        length = batch_map["length"]
+        gt = batch_map.get("GT")
+        if length <= 2 or gt is None:
+            continue
+        real = batch_map.get("real_size", batch_map["batch_size"])
+        lens = batch_map.get("lengths")
+        lens = (np.full(real, length, np.int32) if lens is None
+                else np.asarray(lens[:real], np.int32))
+        for bid in range(real):
+            n = int(lens[bid])
+            if n <= 2:
+                continue
+            tree = n - 1
+            for i in range(n - 2, -1, -1):
+                tree = (i, tree)
+            f1.update(set(tree_to_spans(tree)[:-1]), set(gt[bid][:-1]))
+    return {"corpus_f1": f1.corpus_f1, "sent_f1": f1.sent_f1}
 
 
 def _reduce_counters(f1, grounding, sent_by_batch, mesh):

@@ -37,17 +37,19 @@ from cliora_tpu_torch.training.trainer import (
 )
 
 
-def build(B=128, L=20, dtype="bfloat16", device=None):
+def build(B=128, L=20, dtype="bfloat16", device=None, attn_impl="cuda",
+          D=D, E=E, V=V, K=KNEG, R=R, F=F, use_contr=True):
     """The bench trainer and one batch on its device (tools/profile_step.py:
-    32-48)."""
+    32-48); the widths and the span x region route may be changed, as
+    ``tools/bench.py`` does for its FLOP count and its CPU tests."""
     cfg = ModelConfig(size=D, input_size=E, use_obj=True, n_regions=R,
                       obj_feat_size=F, compute_dtype=dtype)
-    tc = TrainConfig(lr=5e-4, k_neg=KNEG, vg_loss=True, use_contr=True,
-                     emb_trainable=True, attn_impl="cuda")
+    tc = TrainConfig(lr=5e-4, k_neg=K, vg_loss=True, use_contr=use_contr,
+                     emb_trainable=True, attn_impl=attn_impl)
     trainer = Trainer.build(cfg, tc, V, seed=0, device=device)
     rs = np.random.RandomState(0)
     batch = {"sentences": rs.randint(0, V, (B, L)),
-             "neg_samples": rs.choice(V, KNEG, replace=False),
+             "neg_samples": rs.choice(V, K, replace=False),
              "obj_feats": rs.randn(B, R, F).astype(np.float32)}
     return trainer, {k: torch.as_tensor(v).to(trainer.device)
                      for k, v in batch.items()}
