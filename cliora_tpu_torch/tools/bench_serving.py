@@ -137,10 +137,11 @@ def main(argv=None):
         save_bundle,
     )
     from cliora_tpu_torch.training.trainer import TrainConfig, Trainer
+    from cliora_tpu_torch.utils.prng import PRNGKey
 
     B, L = args.batch, args.length
     cfg = ModelConfig(size=args.hidden, input_size=1024)
-    params = init_params(torch.Generator().manual_seed(0), cfg, 10000)
+    params = init_params(PRNGKey(0), cfg, 10000)
     rs = np.random.RandomState(0)
     sents = [list(rs.randint(2, 10000, L)) for _ in range(B)]
 

@@ -89,6 +89,7 @@ from cliora_tpu_torch.training.losses import (
     vg_loss,
     vg_loss_from_scores,
 )
+from cliora_tpu_torch.utils import prng
 
 ATTN_IMPLS = ("einsum", "chunked", "cuda")
 
@@ -537,8 +538,8 @@ class Trainer:
         rank passes its own rows of each global batch.
         """
         device = _resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        return cls(cfg, tc, init_params(gen, cfg, embeddings, device),
+        return cls(cfg, tc, init_params(prng.PRNGKey(seed), cfg,
+                                        embeddings, device),
                    device=device, mesh=mesh)
 
     def _place_batch(self, batch_map):

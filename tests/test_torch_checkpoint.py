@@ -17,13 +17,13 @@ from cliora_tpu_torch.training.checkpoint import (
     params_from_numpy,
     unflatten_like,
 )
+from cliora_tpu_torch.utils.prng import PRNGKey
 
 
 @pytest.mark.parametrize("share,compress", [(True, False), (False, True)])
 def test_init_params_tree_matches_jax(share, compress):
     kw = dict(size=8, input_size=12, share=share, compress=compress)
-    got = flatten(init_params(torch.Generator().manual_seed(0),
-                              ModelConfig(**kw), 30))
+    got = flatten(init_params(PRNGKey(0), ModelConfig(**kw), 30))
     want_tree = jax_init_params(jax.random.PRNGKey(0), JaxConfig(**kw), 30)
     want = jax_flatten(want_tree)
     assert sorted(got) == sorted(want)
@@ -35,9 +35,9 @@ def test_init_params_tree_matches_jax(share, compress):
 
 def test_init_params_is_seeded_and_standard_normal():
     cfg = ModelConfig(size=32, input_size=16)
-    a = flatten(init_params(torch.Generator().manual_seed(5), cfg, 200))
-    b = flatten(init_params(torch.Generator().manual_seed(5), cfg, 200))
-    c = flatten(init_params(torch.Generator().manual_seed(6), cfg, 200))
+    a = flatten(init_params(PRNGKey(5), cfg, 200))
+    b = flatten(init_params(PRNGKey(5), cfg, 200))
+    c = flatten(init_params(PRNGKey(6), cfg, 200))
     assert all(np.array_equal(a[k], b[k]) for k in a)
     assert not np.array_equal(a["embed/mat"], c["embed/mat"])
     allv = np.concatenate([v.ravel() for v in a.values()])
@@ -47,10 +47,10 @@ def test_init_params_is_seeded_and_standard_normal():
 def test_pretrained_embeddings_are_kept():
     table = np.arange(30 * 12, dtype=np.float32).reshape(30, 12)
     cfg = ModelConfig(size=8, input_size=12)
-    p = init_params(torch.Generator().manual_seed(0), cfg, table)
+    p = init_params(PRNGKey(0), cfg, table)
     np.testing.assert_array_equal(p["embed"]["embeddings"].numpy(), table)
     with pytest.raises(ValueError, match="input_size"):
-        init_params(torch.Generator().manual_seed(0), cfg, table[:, :5])
+        init_params(PRNGKey(0), cfg, table[:, :5])
 
 
 def test_jax_params_round_trip_without_transposes():
@@ -63,8 +63,8 @@ def test_jax_params_round_trip_without_transposes():
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     # unflatten_like: missing keys keep the template, extras are ignored
-    template = init_params(torch.Generator().manual_seed(0),
-                           ModelConfig(size=8, input_size=12), 30)
+    template = init_params(PRNGKey(0), ModelConfig(size=8, input_size=12),
+                           30)
     partial = {k: v for k, v in want.items() if not k.startswith("embed/")}
     partial["unused/key"] = np.zeros(3, np.float32)
     rebuilt, missing, used = unflatten_like(template, partial)

@@ -18,6 +18,7 @@ from cliora_tpu_torch.models.config import ModelConfig
 from cliora_tpu_torch.models.params import init_params
 from cliora_tpu_torch.training import checkpoint as tck
 from cliora_tpu_torch.training import trainer as tt
+from cliora_tpu_torch.utils.prng import PRNGKey
 
 D, E, V, R, F = 16, 24, 50, 4, 32
 B, L = 4, 5
@@ -45,8 +46,7 @@ def _jax_params(use_obj=True, share=True, seed=3):
 
 
 def _port_template(use_obj=True, share=True, seed=11):
-    return init_params(torch.Generator().manual_seed(seed),
-                       _cfg(use_obj, share)[1], V)
+    return init_params(PRNGKey(seed), _cfg(use_obj, share)[1], V)
 
 
 def _jax_template(use_obj=True, share=True):

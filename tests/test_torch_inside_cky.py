@@ -18,6 +18,7 @@ from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky
 from cliora_tpu_torch.ops.chart_pass import inside_pass
 from cliora_tpu_torch.ops.core import unit_norm
+from cliora_tpu_torch.utils.prng import PRNGKey
 
 D = 16
 
@@ -68,8 +69,7 @@ def test_plain_matches_jax_pallas_kernel_bf16(B, n):
 
 
 def _port_case(B, n, D, seed=0):
-    dp = init_diora_params(torch.Generator().manual_seed(seed),
-                           ModelConfig(size=D))
+    dp = init_diora_params(PRNGKey(seed), ModelConfig(size=D))
     gen = torch.Generator().manual_seed(seed + 1)
     return dp, unit_norm(torch.randn(B, n, D, generator=gen))
 

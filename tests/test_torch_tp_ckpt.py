@@ -9,7 +9,8 @@ matches the port's; the directory restores at (1, 2) into a fresh
 trainer whose third step has the uninterrupted one's bits, and at
 (1, 1) and (2, 1), replicated and under ZeRO-1, with the saved bits.
 The train CLI with ``--mp 2 --zero1`` in two processes resumes exactly
-and ends where one process's CLI ends.
+and ends where one process's CLI ends, on the entries that float32
+determines there.
 """
 
 import numpy as np
@@ -18,6 +19,14 @@ import pytest
 import torch_dp as dp
 from cliora_tpu_torch.training.checkpoint import flatten
 from cliora_tpu_torch.training.dist_ckpt import is_ckpt_dir, restore_state
+
+CLI_ATOL = 1e-5
+# the init perturbations of the one-process CLI's noise runs
+NOISE_SEEDS = (1, 2)
+# the leaves whose gradients pass through the saturated leaf tanh: the
+# embedding projection and the leaf projections it feeds
+SATURATED_LEAVES = ("embed/mat", "diora/inside_compose/leaf_fc/w",
+                    "diora/inside_compose/leaf_fc/b")
 
 
 @pytest.fixture(scope="module")
@@ -144,12 +153,35 @@ def test_restore_at_two_dp_ranks(zero1, saved, restored_by_two_ranks):
         _assert_equal(_part(rec, f"zero1_{zero1}"), _part(ranks[0], "saved"))
 
 
+def _cli_init(corpus, path):
+    """The one-process train CLI's initial model (its ``--seed``) as an
+    ``.npz``."""
+    from cliora_tpu_torch.scripts import common
+    from cliora_tpu_torch.training.trainer import Trainer
+    from cliora_tpu_torch.utils.flags import argument_parser, parse_args
+
+    options = parse_args(argument_parser(), dp.cli_flags(corpus))
+    emb = common.get_train_and_validation(options)[0]["embeddings"]
+    np.savez(path, **flatten(Trainer.build(
+        common.model_config_from_options(options, emb),
+        common.train_config_from_options(options), emb, seed=options.seed,
+        device="cpu").params))
+
+
 def test_cli_mp2_resume_and_one_process(tmp_path):
     """The train CLI with ``--mp 2 --zero1`` in two processes (``--device
     cpu``, gloo): two epochs with the chief's files, then both ranks
     resume from epoch 0 and train epoch 1 to the uninterrupted run's
     bits; its epoch-1 parameters equal one process's CLI run at atol
-    1e-5."""
+    ``CLI_ATOL``.
+
+    The ``--emb none`` init (an N(0, 1) 1024-d table) saturates the leaf
+    tanh (ROADMAP, known deltas), and Adam turns the rounding-level
+    gradients there, whose order mp changes, into visible steps: from an
+    init moved by 1e-7 relative, one process's own run moves entries of
+    ``embed/mat`` by up to 1.1e-4.  So the comparison leaves out the
+    entries that such a run (``NOISE_SEEDS``) moves by more than
+    ``CLI_ATOL``: at most 1 in 1,000, and only in ``SATURATED_LEAVES``."""
     from cliora_tpu_torch.scripts import train
 
     corpus = str(tmp_path / "corpus")
@@ -169,5 +201,31 @@ def test_cli_mp2_resume_and_one_process(tmp_path):
                                      "--max_epoch", "2"]))
     c = np.load(one / "model.epoch_1.npz")
     assert sorted(a.files) == sorted(c.files)
+    init = str(tmp_path / "init.npz")
+    _cli_init(corpus, init)
+    with np.load(init) as z:
+        start = {k: z[k] for k in z.files}
+    sensitive = {k: np.zeros(c[k].shape, bool) for k in c.files}
+    for seed in NOISE_SEEDS:
+        rs = np.random.RandomState(seed)
+        noisy = str(tmp_path / f"noise{seed}.npz")
+        np.savez(noisy, **{k: (v * (1 + 1e-7 * rs.randn(*v.shape)))
+                           .astype(np.float32) for k, v in start.items()})
+        exp = tmp_path / f"noise{seed}"
+        train.main(dp.cli_flags(corpus, [
+            "--experiment_path", str(exp), "--max_epoch", "2",
+            "--load_model_path", noisy]))
+        n = np.load(exp / "model.epoch_1.npz")
+        for k in c.files:
+            sensitive[k] |= np.abs(n[k] - c[k]) > CLI_ATOL
+    checked = left_out = 0
     for k in c.files:
-        np.testing.assert_allclose(a[k], c[k], atol=1e-5, err_msg=k)
+        keep = ~sensitive[k]
+        checked += c[k].size
+        left_out += int(sensitive[k].sum())
+        np.testing.assert_allclose(a[k][keep], c[k][keep], atol=CLI_ATOL,
+                                   err_msg=k)
+    assert left_out * 1000 <= checked, (left_out, checked)
+    stray = [k for k in c.files
+             if sensitive[k].any() and k not in SATURATED_LEAVES]
+    assert not stray, stray

@@ -1,17 +1,18 @@
 """The JAX package's initial parameters of the README's grammar-induction
-demonstration, for the port's chip smoke run.
+demonstration, the reference for the port's init on the card's machine.
 
-The two packages draw their N(0, 1) init from different generators
-(``jax.random`` against ``torch.Generator``), so ``--seed 11`` names
-another initial model in the port (ROADMAP.md, C5), and the card's
-machine has no JAX.  :func:`write` saves the model the JAX package's
-README command starts from (``python -m cliora_tpu.scripts.train`` with
-the demonstration's flags and its default seed) as an ``.npz`` without
-the fixed embedding table: ``chip_smoke.py``'s ``learn`` phase hands it
-to the port's train CLI as ``--load_model_path``.  The initial
-parameters depend on the flags and the embedding width only, so a small
-corpus from tools/make_synthetic_ptb.py (whose embeddings do not depend
-on its size) stands in for the demonstration's.
+The port draws its init from ``jax.random``'s stream reproduced in numpy
+(cliora_tpu_torch/utils/prng.py), so ``--seed 11`` names the JAX
+package's initial model in both packages; the card's machine has no JAX
+to compare with.  :func:`write` saves the model the JAX package's README
+command starts from (``python -m cliora_tpu.scripts.train`` with the
+demonstration's flags and its default seed) as an ``.npz`` without the
+fixed embedding table: ``chip_smoke.py``'s ``learn`` phase holds the
+port's draw on the card's host to it (``init_check``), and
+tests/test_torch_prng.py holds the port's draw on the CPU to it.  The
+initial parameters depend on the flags and the embedding width only, so
+a small corpus from tools/make_synthetic_ptb.py (whose embeddings do not
+depend on its size) stands in for the demonstration's.
 
     JAX_PLATFORMS=cpu python tests/torch_demo_init.py
 
