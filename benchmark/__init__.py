@@ -1,0 +1,2 @@
+"""The benchmark of cliora_tpu_torch on one H100: ``python3 -m
+benchmark.run`` runs one cell of ``BENCHMARK.json`` once."""
