@@ -226,6 +226,7 @@ from cliora_tpu_torch.training.trainer import (
 from cliora_tpu_torch.data import elmo
 from cliora_tpu_torch.data.embeddings import elmo_cache_path
 from cliora_tpu_torch.utils import flags as cli_flags
+from cliora_tpu_torch.utils import observability as obs
 from cliora_tpu_torch.utils import prng
 from cliora_tpu_torch.utils.device_probe import card_info
 from cliora_tpu_torch.tools import bench as tool_bench
@@ -701,17 +702,17 @@ def parse_path(rs):
     plan = ([("float32", tr32, bt) for bt in batches]
             + [("bfloat16", tr16, bf16_batch), ("float32", tr32, len_batch)])
     done = []
-    inside_cky.launches = 0
+    zero_counts()
     for dtype, tr, batch in plan:
-        before = inside_cky.launches
+        before = kernel_calls("inside_cky")
         t0 = time.perf_counter()
         res, _ = tr.parse(batch)
         t1 = time.perf_counter()
         decoded = trees.decode_batch(res["cky_bp"], N, batch.get("lengths"))
         t2 = time.perf_counter()
         done.append((dtype, tr, batch, res, decoded, trees.last_decoder,
-                     before, inside_cky.launches, t1 - t0, t2 - t1))
-    path_launches = inside_cky.launches
+                     before, kernel_calls("inside_cky"), t1 - t0, t2 - t1))
+    path_launches = kernel_calls("inside_cky")
 
     for i, (dtype, tr, batch, res, decoded, decoder, before, after, t_parse,
             t_dec) in enumerate(done):
@@ -930,8 +931,18 @@ def parse_request(tr, batch):
                                    "span_boxes_n": boxes}
 
 
+def kernel_calls(kernel):
+    """Calls of a hand kernel's wrapper that launched it, from the tracing
+    registry (a replayed graph launches without a call)."""
+    return obs.counters().get(kernel + ".calls", 0)
+
+
+def sr_counts():
+    return {k: kernel_calls(k) for k in SR_KERNELS}
+
+
 def kernel_counts():
-    return {"inside_cky": inside_cky.launches, **span_region.launches}
+    return {"inside_cky": kernel_calls("inside_cky"), **sr_counts()}
 
 
 def cliora_parse_requests(dtype, tr, batches):
@@ -1267,12 +1278,12 @@ def train_steps(dtype, batch):
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for i in range(TRAIN_STEPS):
-        before = dict(span_region.launches)
+        before = sr_counts()
         t0 = time.perf_counter()
         metrics = tr.step(batch)
         losses = {k: float(v) for k, v in metrics.items()}   # syncs
         ms = (time.perf_counter() - t0) * 1e3
-        delta = {k: span_region.launches[k] - before[k] for k in SR_KERNELS}
+        delta = {k: sr_counts()[k] - before[k] for k in SR_KERNELS}
         rec = {"phase": "train_step", "dtype": dtype, "step": i,
                "losses": losses, "launches_delta": delta, "ms": ms}
         emit(rec)
@@ -1345,9 +1356,9 @@ def route_vs_chunked(rs):
         res = {}
         for impl in ("cuda", "chunked"):
             cfg, tc = train_configs(dtype, attn_impl=impl, attn_dropout=0.0)
-            before = dict(span_region.launches)
+            before = sr_counts()
             res[impl] = step_grads(cfg, tc, flat, batch, "cuda")
-            res[impl + "_launches"] = {k: span_region.launches[k] - before[k]
+            res[impl + "_launches"] = {k: sr_counts()[k] - before[k]
                                        for k in SR_KERNELS}
         (m_k, g_k), (m_c, g_c) = res["cuda"], res["chunked"]
         rel = {k: abs(m_k[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in m_c}
@@ -1417,22 +1428,22 @@ def graphed_train(dtype, batch, eager):
     warm = tr.steps([batch] * GRAPH_WARMUP_STEPS)
     check(finite_losses(warm), f"{dtype}: non-finite warm-up loss")
     warm_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_WARMUP_STEPS
-    before = dict(span_region.launches)
+    before = sr_counts()
     t0 = time.perf_counter()
     first = tr.steps([batch])
     check(finite_losses(first), f"{dtype}: non-finite loss")   # syncs
     capture_ms = (time.perf_counter() - t0) * 1e3
-    at_capture = {k: span_region.launches[k] - before[k] for k in SR_KERNELS}
+    at_capture = {k: sr_counts()[k] - before[k] for k in SR_KERNELS}
     check(all(v == 2 for v in at_capture.values()),
           f"{dtype}: K2/K3/K4 launches at the capture {at_capture}")
     runs = []
     for _ in range(2):
-        before = dict(span_region.launches)
+        before = sr_counts()
         t0 = time.perf_counter()
         metrics = tr.steps([batch] * GRAPH_STEPS)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3 / GRAPH_STEPS)
-        check(span_region.launches == before,
+        check(sr_counts() == before,
               f"{dtype}: a replay moved a kernel counter")
     check(finite_losses(metrics), f"{dtype}: non-finite graphed loss")
     peak = torch.cuda.max_memory_allocated()
@@ -1707,11 +1718,10 @@ def train_graphs_path(rs, batch, eager):
     the optimizer-state trip, a failed capture.  Returns the summaries
     and the kernel counters of the graphed runs."""
     t_phase = time.perf_counter()
-    for k in span_region.launches:
-        span_region.launches[k] = 0
+    zero_counts()
     graphs = {dtype: graphed_train(dtype, batch, eager[dtype])
               for dtype in ("bfloat16", "float32")}
-    path_launches = dict(span_region.launches)
+    path_launches = sr_counts()
     check(all(v >= 1 for v in path_launches.values()),
           f"the graphed train path skipped a span_region kernel: "
           f"{path_launches}")
@@ -1998,11 +2008,10 @@ def train_path(rs):
     # pipeline uploads the next batch while a step runs)
     batch = {k: torch.as_tensor(v).to(dev)
              for k, v in train_batch(rs, B, N, V, K_NEG, R, F).items()}
-    for k in span_region.launches:
-        span_region.launches[k] = 0
+    zero_counts()
     train = {dtype: train_steps(dtype, batch)
              for dtype in ("bfloat16", "float32")}
-    path_launches = dict(span_region.launches)
+    path_launches = sr_counts()
     check(all(v >= 2 * TRAIN_STEPS for v in path_launches.values()),
           f"the train path skipped a span_region kernel: {path_launches}")
 
@@ -2559,9 +2568,7 @@ def free_card():
 
 
 def zero_counts():
-    for k in span_region.launches:
-        span_region.launches[k] = 0
-    inside_cky.launches = 0
+    obs.reset()
 
 
 def arch_graphed(tag, cfg, tc, batch, eager_steps=2):

@@ -1201,6 +1201,28 @@ int span_region_dobj(const void* span, const int* am, const float* g,
   return 0;
 }
 
+// Phase markers of the train step (training/trainer.py:_mark): empty
+// kernels whose names show in a device trace where a step's forward,
+// backward and update begin and where the step ends.  Launched on the
+// caller's stream, they are captured into a CUDA graph with the step.
+__global__ void cliora_mark_forward() {}
+__global__ void cliora_mark_backward() {}
+__global__ void cliora_mark_update() {}
+__global__ void cliora_mark_end() {}
+
+// phase 0..3: forward, backward, update, end.
+int cliora_mark(int phase, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (phase) {
+    case 0: cliora_mark_forward<<<1, 1, 0, st>>>(); break;
+    case 1: cliora_mark_backward<<<1, 1, 0, st>>>(); break;
+    case 2: cliora_mark_update<<<1, 1, 0, st>>>(); break;
+    case 3: cliora_mark_end<<<1, 1, 0, st>>>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 const char* span_region_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -16,7 +16,9 @@ has finished.)
 
 The batch iterator's producer thread (data/batching.py) builds numpy
 batch maps only; this module, in the consumer's thread, is the only one
-that touches CUDA.
+that touches CUDA.  Staging one batch (the pinned allocations, the numpy
+copies and the enqueue of its uploads) is the tracing registry's span
+``prefetch.stage``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from cliora_tpu_torch.utils import observability as obs
 
 # the batch map's device arrays and the dtypes Trainer._place_batch gives
 # them
@@ -45,7 +49,7 @@ class _Uploader:
 
     def put(self, batch_map):
         out = dict(batch_map)
-        with torch.cuda.stream(self.stream):
+        with obs.span("prefetch.stage"), torch.cuda.stream(self.stream):
             for key, dtype in DEVICE_KEYS.items():
                 value = batch_map.get(key)
                 if value is None or isinstance(value, torch.Tensor):

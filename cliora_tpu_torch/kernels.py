@@ -9,7 +9,8 @@ every shared header ``csrc/*.cuh`` and of the flags, so an edited source
 or header is never served by a stale build.
 
 ``build`` reports each build's seconds and the ``-Xptxas -v`` lines
-(registers, shared memory, spills).
+(registers, shared memory, spills), and counts ``kernels.builds`` in the
+tracing registry, one a library built.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable
+
+from cliora_tpu_torch.utils import observability as obs
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -108,6 +111,7 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, dict]:
                               f"{stdout}\n{stderr}")
                 continue
             os.replace(tmp, out)
+            obs.count("kernels.builds")
             built[name] = {"seconds": time.perf_counter() - t0, "path": out,
                            "ptxas": _ptxas_report(stderr)}
         if failed:

@@ -27,10 +27,7 @@ import torch
 from cliora_tpu_torch import kernels
 from cliora_tpu_torch.chart.indices import INDEX
 from cliora_tpu_torch.chart.offsets import level_offsets, ncells
-
-# Wrapper launches of the CUDA kernel in this process (one per call that
-# ran on the card); the plain version never counts.
-launches = 0
+from cliora_tpu_torch.utils import observability as obs
 
 _SMEM_SPARE_FLOATS = 128        # room for combine's static shared memory
 _INT32_MAX = 2 ** 31 - 1
@@ -171,9 +168,9 @@ def fused_inside_cky(dp, h0: torch.Tensor, norm: str = "unit",
 
     Returns ``(inside_s (B, ncells, 1) f32, bp (B, ncells) int32,
     val (B, ncells) f32)``.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
+    CUDA tensor launches the kernel or raises, and counts
+    ``inside_cky.calls`` in the tracing registry.
     """
-    global launches
     if h0.device.type == "cpu":
         return fused_inside_cky_plain(dp, h0, norm, compute_dtype)
     if h0.device.type != "cuda":
@@ -224,5 +221,5 @@ def fused_inside_cky(dp, h0: torch.Tensor, norm: str = "unit",
     if err != 0:
         msg = lib.inside_cky_error_string(err).decode()
         raise RuntimeError(f"inside_cky kernel launch failed: {msg} ({err})")
-    launches += 1
+    obs.count("inside_cky.calls")
     return s[..., None], bp, val

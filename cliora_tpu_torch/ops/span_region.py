@@ -51,23 +51,19 @@ in its own dtype and ``span`` in the span dtype, and accumulates in f32
 and ``obj`` to the span dtype before its matmuls; the port does not.)
 
 Each kernel's wrapper takes its plain version only for a CPU tensor; on
-a CUDA tensor it launches the kernel or raises.  ``launches`` counts the
-kernel launches of each wrapper in this process.
+a CUDA tensor it launches the kernel or raises.  Each wrapper call that
+launches counts in the tracing registry (utils/observability.py) as
+``<wrapper>.calls``; a replayed CUDA graph launches without a call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
 from cliora_tpu_torch import kernels
-
-# Kernel launches per wrapper in this process; the plain versions never
-# count.
-launches: Dict[str, int] = {
-    "span_region_fwd": 0, "span_region_dspan": 0, "span_region_dobj": 0}
+from cliora_tpu_torch.utils import observability as obs
 
 CHUNK = 8        # images per chunk of the 'chunked' forward
 BWD_CHUNK = 16   # images per chunk of the plain backward
@@ -155,6 +151,8 @@ def _lib() -> ctypes.CDLL:
         lib.span_region_dobj.restype = i32
         lib.span_region_error_string.argtypes = [i32]
         lib.span_region_error_string.restype = ctypes.c_char_p
+        lib.cliora_mark.argtypes = [i32, ptr]
+        lib.cliora_mark.restype = i32
         _LIB = lib
     return _LIB
 
@@ -176,6 +174,21 @@ def _raise_on(err: int, what: str):
     if err != 0:
         msg = _lib().span_region_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+PHASES = ("forward", "backward", "update", "end")
+
+
+def phase_marker(phase: str, device: torch.device) -> None:
+    """Launch ``cliora_mark_<phase>``, the empty kernel of a train-step
+    phase (one of ``PHASES``), on ``device``'s current stream; inside a
+    CUDA graph capture it becomes a node of the graph.  It draws no
+    random numbers and touches no memory (training/trainer.py:
+    ``Trainer._mark``)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(_lib().cliora_mark(PHASES.index(phase), stream),
+                  "phase marker")
 
 
 def _cuda_device(t: torch.Tensor) -> torch.device:
@@ -228,7 +241,7 @@ def span_region_fwd(span: torch.Tensor, obj: torch.Tensor):
             span.data_ptr(), obj.data_ptr(), mx.data_ptr(), am.data_ptr(),
             A, M, C, R, D, int(span.dtype == torch.bfloat16), stream)
     _raise_on(err, "span_region_fwd")
-    launches["span_region_fwd"] += 1
+    obs.count("span_region_fwd.calls")
     return mx, am
 
 
@@ -287,7 +300,7 @@ def span_region_dspan(obj: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
             dspan.data_ptr(), A, M, C, R, D, segs,
             int(span_dtype == torch.bfloat16), stream)
     _raise_on(err, "span_region_dspan")
-    launches["span_region_dspan"] += 1
+    obs.count("span_region_dspan.calls")
     return dspan
 
 
@@ -371,7 +384,7 @@ def span_region_dobj(span: torch.Tensor, am: torch.Tensor, g: torch.Tensor,
             span.data_ptr(), am.data_ptr(), g.data_ptr(), partial.data_ptr(),
             dobj.data_ptr(), A, M, C, R, D, segs, int(bf16), stream)
     _raise_on(err, "span_region_dobj")
-    launches["span_region_dobj"] += 1
+    obs.count("span_region_dobj.calls")
     return dobj.to(obj_dtype)
 
 

@@ -27,8 +27,12 @@ from cliora_tpu_torch.utils.flags import (
 )
 from cliora_tpu_torch.utils.observability import (
     configure_experiment,
+    counters,
     get_logger,
 )
+
+# the tracing registry's count of requests on each Trainer.parse route
+ROUTE_COUNTERS = ("parse.route.cuda", "parse.route.plain")
 
 
 def run(options):
@@ -51,6 +55,7 @@ def run(options):
     logger.info(f"Writing output to = {output_path}")
 
     f1 = F1Meter()
+    routed = counters()
     with open(output_path, "w") as fout:
         for batch_map in validation_iterator.get_iterator(
                 random_seed=options.seed):
@@ -83,6 +88,9 @@ def run(options):
                 fout.write(json.dumps(record) + "\n")
 
     print(f"corpus_f1:{f1.corpus_f1} \t sent_f1:{f1.sent_f1}")
+    now = counters()
+    print(" \t ".join(f"{k}:{now.get(k, 0) - routed.get(k, 0)}"
+                       for k in ROUTE_COUNTERS))
     return {"corpus_f1": f1.corpus_f1, "sent_f1": f1.sent_f1}
 
 

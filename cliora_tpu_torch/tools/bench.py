@@ -23,7 +23,7 @@ Prints ONE JSON line with bench.py's fields ("card" where bench.py says
 eager ``Trainer.step`` calls to one sync); ``capture_s`` (the first
 call) and ``build_s`` (building or loading K2-K4's library before it);
 ``idle_share`` of a replayed step (1 - the profiler's device-busy
-ms over ``step_ms``); ``max_memory_allocated_bytes``; ``step_flops`` and
+ms, the union of its operations' intervals, over ``step_ms``); ``max_memory_allocated_bytes``; ``step_flops`` and
 ``mfu_vs_h100_bf16_peak``; ``device`` and ``power_limit``.
 
 ``vs_baseline`` divides by bench.py's 2.11 sentences/s: the reference
@@ -123,10 +123,10 @@ def run(B=B, L=L, D=D, E=E, V=V, K=K, R=R, F=F, dtype=DTYPE,
 
     idle = "not measured"
     if dev.type == "cuda":
-        table = common.profile_kernels(lambda: trainer.steps([batch]),
-                                       reps=k_call)
+        table, busy = common.profile_kernels(lambda: trainer.steps([batch]),
+                                             reps=k_call)
         if table:
-            idle = 1 - sum(r["ms"] for r in table.values()) / step_ms
+            idle = common.idle_share(busy, step_ms)
 
     t0 = time.perf_counter()
     for _ in range(EAGER_STEPS):

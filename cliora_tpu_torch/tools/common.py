@@ -1,6 +1,7 @@
 """What the measuring tools share: the card check and its refusal line,
 the card's name and power limit, a sync, the bench model's widths, and
-the profiler's table of the device kernels of a replayed step.
+the profiler's table of the device kernels of a replayed step with the
+device's busy time (the union of its operations' intervals).
 
 A tool that measures the card runs on it unless it is given ``--device
 cpu``; without a card it prints one JSON line with an ``error`` and exits
@@ -149,12 +150,35 @@ def by_class(table: Dict) -> Dict[str, Dict]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
 
 
+def busy_ms(intervals: Iterable[Tuple[float, float]]) -> float:
+    """The length of the union of ``(start, end)`` intervals: a device's
+    busy time, where operations that overlap on two streams count once
+    (a sum of their durations counts them twice)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def idle_share(busy: float, wall: float) -> float:
+    """The share of ``wall`` in which the device was not busy, from a
+    :func:`busy_ms` over the same span of work."""
+    return 1.0 - busy / wall
+
+
 def profile_kernels(fn, reps: int = 1, calls: Optional[Dict] = None):
-    """:func:`kernel_table` of ``reps`` calls of ``fn`` on the card, empty
-    when the profiler sees no device activity.  A trace can miss the
-    first kernel launched after it starts, so a short spin kernel runs
-    first and is left out.  ``calls``, a dict, receives the host-side
-    ``LAUNCH_CALLS`` a call of ``fn`` by name."""
+    """``(kernel_table, busy ms a call)`` of ``reps`` calls of ``fn`` on
+    the card; the table is empty when the profiler sees no device
+    activity.  The busy ms is :func:`busy_ms` over every traced device
+    operation.  A trace can miss the first kernel launched after it
+    starts, so a short spin kernel runs first and is left out.
+    ``calls``, a dict, receives the host-side ``LAUNCH_CALLS`` a call of
+    ``fn`` by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -165,11 +189,13 @@ def profile_kernels(fn, reps: int = 1, calls: Optional[Dict] = None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = []
+    events, intervals = [], []
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and "spin_kernel" not in evt.name):
             events.append((evt.name, evt.device_time_total / 1e3))
+            intervals.append((evt.time_range.start / 1e3,
+                              evt.time_range.end / 1e3))
         elif calls is not None and evt.name in LAUNCH_CALLS:
             calls[evt.name] = calls.get(evt.name, 0) + 1
     if calls is not None:
@@ -177,7 +203,7 @@ def profile_kernels(fn, reps: int = 1, calls: Optional[Dict] = None):
             calls["cudaLaunchKernel"] -= 1            # the spin kernel
         for name in calls:
             calls[name] /= reps
-    return kernel_table(events, reps)
+    return kernel_table(events, reps), busy_ms(intervals) / reps
 
 
 def source_label(evt) -> str:

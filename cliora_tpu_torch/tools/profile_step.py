@@ -82,14 +82,14 @@ def main(argv=None):
     wall = (time.perf_counter() - t0) / args.steps * 1e3
     print(f"wall per step: {wall:.2f} ms", flush=True)
 
-    table, calls = {}, {}
+    table, calls, busy = {}, {}, 0.0
     if dev.type == "cuda":
-        table = common.profile_kernels(lambda: trainer.steps([batch]),
-                                       reps=args.steps, calls=calls)
-    busy = sum(r["ms"] for r in table.values())
+        table, busy = common.profile_kernels(lambda: trainer.steps([batch]),
+                                             reps=args.steps, calls=calls)
     if table:
-        print(f"device total: {busy:.2f} ms/step over {args.steps} steps "
-              f"(idle share {1 - busy / wall:.3f})", flush=True)
+        print(f"device busy: {busy:.2f} ms/step over {args.steps} steps "
+              f"(idle share {common.idle_share(busy, wall):.3f})",
+              flush=True)
         print("by class: " + ", ".join(
             f"{cls} {r['ms']:.2f} ms x{r['launches']}"
             for cls, r in common.by_class(table).items()), flush=True)
@@ -109,7 +109,8 @@ def main(argv=None):
         "length": args.length, "steps": args.steps,
         "capture_s": capture_s, "wall_ms_per_step": wall,
         "device_ms_per_step": busy if table else "not measured",
-        "idle_share": 1 - busy / wall if table else "not measured",
+        "idle_share": (common.idle_share(busy, wall) if table
+                       else "not measured"),
         "kernels_per_step": sum(r["count"] for r in table.values()),
         "graph_launches_per_step": calls.get("cudaGraphLaunch", 0),
         "hand_kernels_per_step": common.hand_launches(table),

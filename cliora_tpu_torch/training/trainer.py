@@ -62,7 +62,7 @@ from cliora_tpu_torch.models.params import init_params, to_device
 from cliora_tpu_torch.models.word_grounding import word_grounding_forward
 from cliora_tpu_torch.ops import inside_cky
 from cliora_tpu_torch.ops.core import RankRows
-from cliora_tpu_torch.ops.span_region import span_region_max
+from cliora_tpu_torch.ops.span_region import phase_marker, span_region_max
 from cliora_tpu_torch.parallel.mesh import (
     all_gather_rows,
     all_reduce_,
@@ -89,6 +89,7 @@ from cliora_tpu_torch.training.losses import (
     vg_loss,
     vg_loss_from_scores,
 )
+from cliora_tpu_torch.utils import observability as obs
 from cliora_tpu_torch.utils import prng
 
 ATTN_IMPLS = ("einsum", "chunked", "cuda")
@@ -464,13 +465,24 @@ class _StepGraph:
             raise
 
     def replay(self, batch, seed: int) -> Dict[str, torch.Tensor]:
-        for dst, src in zip(self.inputs, batch):
-            if dst is not None:
-                dst.copy_(src)
-        self.generator.manual_seed(seed)
-        self.graph.replay()
-        # the next replay overwrites the graph's outputs
-        vals = self.out.clone()
+        """Copy ``batch`` in, reseed, launch the graph and copy its outputs
+        out, as the tracing registry's spans ``train.copy_in``,
+        ``train.reseed``, ``train.launch`` and ``train.collect``.
+        ``train.launch`` holds any wait for room in the device's launch
+        queue, so with steps in flight it follows the device's time, not
+        the host's own."""
+        with obs.span("train.copy_in"):
+            for dst, src in zip(self.inputs, batch):
+                if dst is not None:
+                    dst.copy_(src)
+        with obs.span("train.reseed"):
+            self.generator.manual_seed(seed)
+        with obs.span("train.launch"):
+            self.graph.replay()
+        with obs.span("train.collect"):
+            # the next replay overwrites the graph's outputs
+            vals = self.out.clone()
+        obs.count("train.replays")
         return {k: vals[i] for i, k in enumerate(self.names)}
 
 
@@ -608,6 +620,11 @@ class Trainer:
         clip and update (cliora_tpu/training/trainer.py:356-411); each
         microbatch draws the next stretch of the step's dropout stream.
 
+        On the card the phase markers (:meth:`_mark`) go onto the stream,
+        and into a captured graph: ``forward`` and ``backward`` before
+        each microbatch's forward and backward, ``update`` before the
+        collectives, clip and Adam, ``end`` after the update.
+
         Under a dp mesh the losses are the rank's shares, the dropout
         masks the rank's rows of the global batch's (``RankRows``), the
         metrics are summed over the group, and the flat gradient is
@@ -622,14 +639,17 @@ class Trainer:
             p.grad = None
         metrics = None
         for tok, ob, lens in self._microbatches(tokens, obj, lengths):
+            self._mark("forward")
             total, m = compute_losses(
                 self.cfg, self.tc, self.params, tok, neg, obj_feats=ob,
                 generator=generator, train=True, lengths=lens, mesh=mesh,
                 tp=self.tp)
+            self._mark("backward")
             total.backward()
             m = {k: v.detach() for k, v in m.items()}
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in m}
+        self._mark("update")
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in trainable]
         if mesh is not None:
@@ -640,6 +660,7 @@ class Trainer:
             metrics = {k: v / A for k, v in metrics.items()}
         if self.zero1 is not None:
             self.zero1.step(grads, A, self.tc.grad_clip)
+            self._mark("end")
             return metrics
         if mesh is not None:
             grads = all_reduce_flat(grads, mesh)
@@ -653,7 +674,16 @@ class Trainer:
         for p, g in zip(trainable, clipped):
             p.grad = g
         self.optimizer.step()
+        self._mark("end")
         return metrics
+
+    def _mark(self, phase: str) -> None:
+        """Launch the empty kernel ``cliora_mark_<phase>`` on the current
+        stream (ops/span_region.py:phase_marker), so that a device trace
+        puts a step's kernels down to its phases; nothing on the CPU or
+        while the tracing registry is off."""
+        if obs.TRACING and self.device.type == "cuda":
+            phase_marker(phase, self.device)
 
     def _microbatches(self, tokens, obj, lengths):
         """``(tokens, obj, lengths)`` of each of the ``accum_steps``
@@ -702,12 +732,19 @@ class Trainer:
         replayed for each batch: the batch is copied into the graph's
         static inputs and the dropout generator reseeded to the step's
         seed.  The first ``GRAPH_WARMUP_STEPS`` batches of a new shape run
-        eagerly on a side stream before the capture.  A capture that fails
-        raises; no eager step runs in its place.  On the CPU the steps run
-        eagerly.  Under a dp mesh the collectives are captured too, which
-        takes NCCL: a CUDA trainer in a gloo group raises here (its eager
-        ``step`` works).  (reference: cliora_tpu/training/trainer.py:
-        670-707 ``steps``, :425-448 ``multi_step``)
+        eagerly on a side stream before the capture.  The tracing
+        registry's spans and counters follow each part: ``train.place``
+        (the group's batches placed on the device), ``train.eager`` and
+        ``train.eager_steps`` (an eager step, the CPU's every step),
+        ``train.captures`` (the capture's seconds are
+        ``capture_seconds``), and a replay's spans
+        (:meth:`_StepGraph.replay`) and ``train.replays``.  A capture
+        that fails raises; no eager step runs in its place.  On the CPU
+        the steps run eagerly.  Under a dp mesh the collectives are
+        captured too, which takes NCCL: a CUDA trainer in a gloo group
+        raises here (its eager ``step`` works).  (reference:
+        cliora_tpu/training/trainer.py:670-707 ``steps``, :425-448
+        ``multi_step``)
         """
         if not batch_maps:
             raise ValueError("steps needs at least one batch")
@@ -717,7 +754,8 @@ class Trainer:
                 f"Trainer.steps on the card captures the dp collectives in "
                 f"a CUDA graph, which takes NCCL; this group runs "
                 f"{self.mesh.backend!r}: use Trainer.step")
-        placed = [self._place_batch(bm) for bm in batch_maps]
+        with obs.span("train.place"):
+            placed = [self._place_batch(bm) for bm in batch_maps]
         keys = {self._graph_key(b) for b in placed}
         if len(keys) != 1:
             raise ValueError(f"steps needs batches of one shape: {keys}")
@@ -727,8 +765,10 @@ class Trainer:
             if self.device.type == "cuda":
                 out.append(self._graphed_step(key, batch))
             else:
-                out.append(self._train_step(
-                    *batch, self.dropout_generator(self._host_step)))
+                with obs.span("train.eager"):
+                    out.append(self._train_step(
+                        *batch, self.dropout_generator(self._host_step)))
+                obs.count("train.eager_steps")
             self._host_step += 1
         return out
 
@@ -738,7 +778,10 @@ class Trainer:
             warmed = self._warmed.get(key, 0)
             if warmed < GRAPH_WARMUP_STEPS:
                 self._warmed[key] = warmed + 1
-                return self._side_stream_step(batch)
+                with obs.span("train.eager"):
+                    metrics = self._side_stream_step(batch)
+                obs.count("train.eager_steps")
+                return metrics
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             t0 = time.perf_counter()
@@ -752,6 +795,7 @@ class Trainer:
                     f"CUDA graph capture of the train step failed for shape "
                     f"key {key}; no step ran") from err
             self.capture_seconds[key] = time.perf_counter() - t0
+            obs.count("train.captures")
             self._graphs[key] = graph
         return graph.replay(batch, DROPOUT_SEED + self._host_step)
 
@@ -980,56 +1024,77 @@ class Trainer:
         another backpointer on rare cells; under bf16 charts the split
         scores also round at different points.  Published trees are
         therefore attributed to their route.
+
+        The tracing registry's spans follow a request on either route:
+        ``parse.route``, ``parse.upload`` (the batch to the device),
+        ``parse.forward`` (the launches of the forward and decode) and
+        ``parse.copy_back`` (the copy to the host, which waits for the
+        device); the counter ``parse.route.<route>`` counts requests.
         """
-        route = self._route(impl, batch_map, compute_loss, with_chart,
-                            outside)
+        with obs.span("parse.route"):
+            route = self._route(impl, batch_map, compute_loss, with_chart,
+                                outside)
+        obs.count("parse.route." + route)
         if route == "cuda":
-            tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
-                                     dtype=torch.int64).to(self.device)
-            dp = self.params["diora"]
-            h0, _ = leaf_transform(self.cfg, dp,
-                                embed_span(self.params["embed"], tokens))
-            _, bp, _ = inside_cky.fused_inside_cky(
-                dp, h0, norm=self.cfg.normalize,
-                compute_dtype=self.cfg.compute_dtype)
-            return {"cky_bp": bp.cpu().numpy(), "parse_impl": route}, {}
+            with obs.span("parse.upload"):
+                tokens = torch.as_tensor(np.asarray(batch_map["sentences"]),
+                                         dtype=torch.int64).to(self.device)
+            with obs.span("parse.forward"):
+                dp = self.params["diora"]
+                h0, _ = leaf_transform(
+                    self.cfg, dp, embed_span(self.params["embed"], tokens))
+                _, bp, _ = inside_cky.fused_inside_cky(
+                    dp, h0, norm=self.cfg.normalize,
+                    compute_dtype=self.cfg.compute_dtype)
+            with obs.span("parse.copy_back"):
+                bp = bp.cpu().numpy()
+            return {"cky_bp": bp, "parse_impl": route}, {}
 
         if outside is None:
             outside = self.cfg.use_obj
         if compute_loss:
             outside = True
-        if batch_map.get("neg_samples") is None:
-            batch_map = {**batch_map, "neg_samples": np.zeros(1, np.int64)}
-        tokens, neg, obj, lengths = self._place_batch(batch_map)
+        with obs.span("parse.upload"):
+            if batch_map.get("neg_samples") is None:
+                batch_map = {**batch_map,
+                             "neg_samples": np.zeros(1, np.int64)}
+            tokens, neg, obj, lengths = self._place_batch(batch_map)
         if self.cfg.arch == "word":
             # chart-free baseline: no trees, grounding scores only
-            wg, metrics = word_grounding_losses(
-                self.cfg, self.tc, self.params, tokens, obj, lengths=lengths,
+            with obs.span("parse.forward"):
+                wg, metrics = word_grounding_losses(
+                    self.cfg, self.tc, self.params, tokens, obj,
+                    lengths=lengths, tp=self.tp)
+            with obs.span("parse.copy_back"):
+                res = {"atten_score": wg.atten_score.cpu().numpy(),
+                       "parse_impl": route}
+                metrics = ({k: float(v) for k, v in metrics.items()}
+                           if compute_loss else {})
+            return res, metrics
+        with obs.span("parse.forward"):
+            out, aux = forward_outputs(
+                self.cfg, self.tc, self.params, tokens, obj_feats=obj,
+                train=False, with_cky=True, outside=outside, lengths=lengths,
                 tp=self.tp)
-            res = {"atten_score": wg.atten_score.cpu().numpy(),
-                   "parse_impl": route}
-            return res, ({k: float(v) for k, v in metrics.items()}
-                         if compute_loss else {})
-        out, aux = forward_outputs(
-            self.cfg, self.tc, self.params, tokens, obj_feats=obj,
-            train=False, with_cky=True, outside=outside, lengths=lengths,
-            tp=self.tp)
-        res = {"cky_bp": out.chart.cky_bp}
-        if with_chart:
-            res["inside_h"] = out.chart.inside_h
-            if outside:
-                res["outside_h"] = out.chart.outside_h
-        if self.cfg.use_obj:
-            ar = torch.arange(tokens.shape[0], device=self.device)
-            res["atten_score"] = out.atten_score
-            # per-example diagonal of the span x region scores
-            # (reference: cliora/scripts/parse.py:169-172)
-            res["span_scores"] = out.all_atten_score[ar, ar]
-        metrics = {}
-        if compute_loss:
-            metrics = losses_from(self.cfg, self.tc, self.params, tokens,
-                                  neg, out, aux, lengths=lengths, tp=self.tp)
-        res = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-               for k, v in res.items()}
+            res = {"cky_bp": out.chart.cky_bp}
+            if with_chart:
+                res["inside_h"] = out.chart.inside_h
+                if outside:
+                    res["outside_h"] = out.chart.outside_h
+            if self.cfg.use_obj:
+                ar = torch.arange(tokens.shape[0], device=self.device)
+                res["atten_score"] = out.atten_score
+                # per-example diagonal of the span x region scores
+                # (reference: cliora/scripts/parse.py:169-172)
+                res["span_scores"] = out.all_atten_score[ar, ar]
+            metrics = {}
+            if compute_loss:
+                metrics = losses_from(self.cfg, self.tc, self.params, tokens,
+                                      neg, out, aux, lengths=lengths,
+                                      tp=self.tp)
+        with obs.span("parse.copy_back"):
+            res = {k: (v.float() if v.is_floating_point() else v).cpu()
+                   .numpy() for k, v in res.items()}
+            metrics = {k: float(v) for k, v in metrics.items()}
         res["parse_impl"] = route
-        return res, {k: float(v) for k, v in metrics.items()}
+        return res, metrics

@@ -18,6 +18,7 @@ from cliora_tpu_torch.models.params import init_diora_params, to_device
 from cliora_tpu_torch.ops import inside_cky
 from cliora_tpu_torch.ops.chart_pass import inside_pass
 from cliora_tpu_torch.ops.core import unit_norm
+from cliora_tpu_torch.utils import observability as obs
 from cliora_tpu_torch.utils.prng import PRNGKey
 
 D = 16
@@ -91,11 +92,11 @@ def test_wrapper_cpu_route_is_plain(compute_dtype):
     """On a CPU tensor the wrapper runs the plain version and launches
     nothing."""
     dp, h0 = _port_case(3, 6, D)
-    before = inside_cky.launches
+    before = obs.counters().get("inside_cky.calls", 0)
     got = inside_cky.fused_inside_cky(dp, h0, compute_dtype=compute_dtype)
     want = inside_cky.fused_inside_cky_plain(dp, h0,
                                              compute_dtype=compute_dtype)
-    assert inside_cky.launches == before == 0
+    assert obs.counters().get("inside_cky.calls", 0) == before == 0
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
 
@@ -133,11 +134,11 @@ def test_cuda_kernel_matches_plain(cuda, B, n, D_, norm):
     dp, h0 = _port_case(B, n, D_)
     dp, h0 = to_device(dp, cuda), h0.to(cuda)
     for dt in ("float32", "bfloat16"):
-        before = inside_cky.launches
+        before = obs.counters().get("inside_cky.calls", 0)
         s, bp, val = inside_cky.fused_inside_cky(dp, h0, norm=norm,
                                                  compute_dtype=dt)
         torch.cuda.synchronize()
-        assert inside_cky.launches == before + 1
+        assert obs.counters()["inside_cky.calls"] == before + 1
         ps, pbp, pval = inside_cky.fused_inside_cky_plain(dp, h0, norm=norm,
                                                           compute_dtype=dt)
         if dt == "float32":

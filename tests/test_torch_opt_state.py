@@ -25,9 +25,9 @@ import pytest
 import torch
 
 from cliora_tpu_torch.models.config import ModelConfig
-from cliora_tpu_torch.ops import span_region
 from cliora_tpu_torch.training import checkpoint as tck
 from cliora_tpu_torch.training import trainer as tt
+from cliora_tpu_torch.utils import observability as obs
 from torch_parity import port_init
 
 D, E, V, R, F, K = 16, 24, 50, 3, 16, 5
@@ -272,9 +272,12 @@ def test_graphed_steps_match_eager(cuda, attn_dropout):
     graphed = _port_trainer(flat, attn_dropout, device=cuda)
     want = [eager.step(b) for b in batches]
     got = graphed.steps(batches)
-    before = dict(span_region.launches)
+    before = obs.counters()
     again = graphed.steps(batches[:1])      # a replay only
-    assert span_region.launches == before
+    after = obs.counters()
+    assert all(after.get(k, 0) == before.get(k, 0)
+               for k in ("span_region_fwd.calls", "span_region_dspan.calls",
+                         "span_region_dobj.calls"))
     want.append(eager.step(batches[0]))
     for a, b in zip(want, got + again):
         for k in a:

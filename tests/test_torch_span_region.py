@@ -15,9 +15,20 @@ import pytest
 import torch
 
 from cliora_tpu_torch.ops import span_region as sr
+from cliora_tpu_torch.utils import observability as obs
 
 A, C, M, R, D = 3, 5, 17, 7, 24
 ATOL = 1e-5
+
+
+KERNELS = ("span_region_fwd", "span_region_dspan", "span_region_dobj")
+
+
+def _calls():
+    """Each wrapper's calls that launched its kernel, from the tracing
+    registry."""
+    counts = obs.counters()
+    return {k: counts.get(k + ".calls", 0) for k in KERNELS}
 
 
 def _data(seed=11):
@@ -113,7 +124,7 @@ def test_wrappers_cpu_route_is_plain():
     """On CPU tensors the wrappers run the plain versions and launch
     nothing."""
     span, obj, g = (torch.from_numpy(x) for x in _data())
-    before = dict(sr.launches)
+    before = _calls()
     mx, am = sr.span_region_fwd(span, obj)
     pmx, pam = sr.span_region_fwd_plain(span, obj)
     assert torch.equal(mx, pmx) and torch.equal(am, pam)
@@ -123,7 +134,7 @@ def test_wrappers_cpu_route_is_plain():
                        sr.span_region_dobj_plain(span, am, g, R,
                                                  torch.float32))
     sr.span_region_max(span.requires_grad_(), obj, "cuda").sum().backward()
-    assert sr.launches == before == {k: 0 for k in sr.launches}
+    assert _calls() == before == {k: 0 for k in KERNELS}
 
 
 def test_supports_and_segments():
@@ -294,10 +305,10 @@ def test_cuda_kernels_match_plain(cuda, a, m, c, r, d):
     g = torch.randn(a, c, m, generator=gen, device=cuda)
     for dt in (torch.float32, torch.bfloat16):
         s = span.to(dt)
-        before = dict(sr.launches)
+        before = _calls()
         mx, am = sr.span_region_fwd(s, obj)
         torch.cuda.synchronize()
-        assert sr.launches["span_region_fwd"] == before["span_region_fwd"] + 1
+        assert _calls()["span_region_fwd"] == before["span_region_fwd"] + 1
         pmx, pam = sr.span_region_fwd_plain(s, obj)
         scale = max(1.0, pmx.abs().max().item())
         if dt == torch.float32:
